@@ -1,0 +1,333 @@
+"""Spatiality-guided transformer captioner, eval path (as the eval half of
+``spacap3d_tpu/models/captioner.py``).
+
+* Pre-LN blocks with the reference LayerNorm (unbiased std, eps on std)
+  and a final LayerNorm after each stack; attention masks with -1e9.
+* The object token is the raw proposal feature plus its encoded feature.
+* Early guide: the object token is decoder position 0 and decoder layers
+  have no cross-attention; late guide cross-attends to the object token.
+* Greedy decode over all B*K proposals with a per-layer KV cache, in
+  ``eval_decode_dtype``: the residual stream, caches and weights are
+  rounded to that dtype, LayerNorm and softmax run in f32, every matmul
+  accumulates in f32 before its cast, and the argmax runs on f32 logits.
+  Each step attends over the valid cache prefix, which gives the softmax
+  of the JAX package's masked full-length (or staged) caches.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from spacap3d_tpu_torch.config import EOS_ID, SOS_ID, ModelConfig
+from spacap3d_tpu_torch.models.core import (
+    BatchNorm,
+    Dense,
+    RefLayerNorm,
+    dense,
+    ref_layer_norm,
+)
+
+NEG_INF = -1e9
+
+
+def sinusoid_pe(max_len: int, d_model: int, device=None) -> torch.Tensor:
+    position = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+                    * -(math.log(10000.0) / d_model))
+    pe = torch.zeros((max_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(position * div)
+    pe[:, 1::2] = torch.cos(position * div)
+    return pe
+
+
+def split_heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, h, d // h).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, dk = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dk)
+
+
+def attention(q, k, v, mask):
+    """q, k, v (B, h, T, dk); mask broadcastable bool (.., T, S) or None."""
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    return torch.matmul(torch.softmax(scores, dim=-1), v)
+
+
+class MultiHeadedAttention(nn.Module):
+    def __init__(self, h: int, d_model: int):
+        super().__init__()
+        self.h = h
+        self.linears = nn.ModuleList(
+            [Dense(d_model, d_model, init="xavier") for _ in range(4)])
+
+    def forward(self, query, key, value, mask=None):
+        q = split_heads(self.linears[0](query), self.h)
+        k = split_heads(self.linears[1](key), self.h)
+        v = split_heads(self.linears[2](value), self.h)
+        if mask is not None and mask.dim() == 3:
+            mask = mask[:, None]                     # broadcast over heads
+        return self.linears[3](merge_heads(attention(q, k, v, mask)))
+
+
+class PositionwiseFeedForward(nn.Module):
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.w_1 = Dense(d_model, d_ff, init="xavier")
+        self.w_2 = Dense(d_ff, d_model, init="xavier")
+
+    def forward(self, x):
+        return self.w_2(torch.relu(self.w_1(x)))
+
+
+class SublayerConnection(nn.Module):
+    """Pre-LN residual x + fn(norm(x)); dropout is off in eval."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.norm = RefLayerNorm(d_model)
+
+    def forward(self, x, fn):
+        return x + fn(self.norm(x))
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, h: int, d_model: int, d_ff: int):
+        super().__init__()
+        self.self_attn = MultiHeadedAttention(h, d_model)
+        self.feed_forward = PositionwiseFeedForward(d_model, d_ff)
+        self.sublayer = nn.ModuleList([SublayerConnection(d_model) for _ in range(2)])
+
+    def forward(self, x, mask):
+        x = self.sublayer[0](x, lambda xn: self.self_attn(xn, xn, xn, mask))
+        return self.sublayer[1](x, self.feed_forward)
+
+
+class DecoderLayer(nn.Module):
+    """Self-attention, cross-attention (late guide only) and FFN; the
+    sublayers keep the reference indices 0, 1, 2."""
+
+    def __init__(self, h: int, d_model: int, d_ff: int, early_guide: bool):
+        super().__init__()
+        self.self_attn = MultiHeadedAttention(h, d_model)
+        if not early_guide:
+            self.src_attn = MultiHeadedAttention(h, d_model)
+        self.feed_forward = PositionwiseFeedForward(d_model, d_ff)
+        idx = ["0", "2"] if early_guide else ["0", "1", "2"]
+        self.sublayer = nn.ModuleDict({i: SublayerConnection(d_model) for i in idx})
+
+
+class Stack(nn.Module):
+    def __init__(self, layers: List[nn.Module], d_model: int):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.norm = RefLayerNorm(d_model)
+
+
+class Embeddings(nn.Module):
+    def __init__(self, vocab_size: int, d_model: int):
+        super().__init__()
+        self.lut = nn.Embedding(vocab_size, d_model)
+
+
+class Generator(nn.Module):
+    def __init__(self, d_model: int, vocab_size: int):
+        super().__init__()
+        self.proj = Dense(d_model, vocab_size, init="xavier")
+
+
+class TransformerModel(nn.Module):
+    """The reference's ``caption.model`` subtree."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d, h, dff, n = cfg.d_model, cfg.num_heads, cfg.d_ff, cfg.num_layers
+        if cfg.use_transformer_encoder:
+            self.encoder = Stack([EncoderLayer(h, d, dff) for _ in range(n)], d)
+            if cfg.src_pos_type is not None:
+                in_ch = 3 if cfg.src_pos_type in ("xyz", "center") else 6
+                self.src_embed = nn.Module()
+                self.src_embed.position_embedding_head = nn.Sequential(
+                    Dense(in_ch, d, kernel_dims=(1,), init="xavier"), BatchNorm(d),
+                    nn.ReLU(), Dense(d, d, kernel_dims=(1,), init="xavier"))
+        self.decoder = Stack(
+            [DecoderLayer(h, d, dff, cfg.early_guide) for _ in range(n)], d)
+        self.tgt_embed = nn.ModuleList([Embeddings(cfg.vocab_size, d)])
+        self.generator = Generator(d, cfg.vocab_size)
+
+
+class _DecodeWeights:
+    """The decoder's weights rounded to the decode dtype once per call and
+    held in f32, so every matmul multiplies the rounded operands with f32
+    accumulation (the products of bf16 values are exact in f32)."""
+
+    def __init__(self, model: TransformerModel, cfg: ModelConfig, dd: torch.dtype):
+        def rnd(t):
+            return t.detach().to(dd).float()
+
+        self.layers = []
+        for layer in model.decoder.layers:
+            lin = layer.self_attn.linears
+            w = {
+                "qkv_w": rnd(torch.cat([lin[i].matrix() for i in range(3)], 0)),
+                "qkv_b": rnd(torch.cat([lin[i].bias for i in range(3)], 0)),
+                "o_w": rnd(lin[3].matrix()), "o_b": rnd(lin[3].bias),
+                "w1": rnd(layer.feed_forward.w_1.matrix()),
+                "b1": rnd(layer.feed_forward.w_1.bias),
+                "w2": rnd(layer.feed_forward.w_2.matrix()),
+                "b2": rnd(layer.feed_forward.w_2.bias),
+            }
+            for i, sub in layer.sublayer.items():
+                w[f"ln{i}"] = (rnd(sub.norm.a_2), rnd(sub.norm.b_2))
+            if not cfg.early_guide:
+                src = layer.src_attn.linears
+                w.update({f"src{i}_w": rnd(src[i].matrix()) for i in range(4)})
+                w.update({f"src{i}_b": rnd(src[i].bias) for i in range(4)})
+            self.layers.append(w)
+        self.dd = dd
+        self.final_ln = (rnd(model.decoder.norm.a_2), rnd(model.decoder.norm.b_2))
+        self.gen_w = rnd(model.generator.proj.matrix())
+        self.gen_b = rnd(model.generator.proj.bias)
+        lut = model.tgt_embed[0].lut.weight
+        self.lut = rnd(lut)
+        self.pe = rnd(sinusoid_pe(cfg.max_des_len + 4, cfg.d_model, lut.device))
+        self.sqrt_d = rnd(torch.tensor(math.sqrt(cfg.d_model), device=lut.device))
+
+
+class Captioner(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.model = TransformerModel(cfg)
+        if cfg.check_relation:
+            d = cfg.d_model
+            # relation head: trained in the training slice, unused by eval
+            self.relation_proposal = nn.Sequential(
+                Dense(d, d), nn.ReLU(), Dense(d, d), nn.ReLU(), Dense(d, 9))
+
+    # ------------------------------------------------------------ encoder
+    def src_embed(self, src: torch.Tensor, src_pos: Optional[torch.Tensor]) -> torch.Tensor:
+        """Learned position head (conv-BN-ReLU-conv) or sinusoidal PE."""
+        if self.cfg.src_pos_type is not None:
+            return src + self.model.src_embed.position_embedding_head(src_pos)
+        return src + sinusoid_pe(src.shape[1], self.cfg.d_model, src.device)
+
+    def encode(self, x: torch.Tensor, src_mask: torch.Tensor) -> torch.Tensor:
+        for layer in self.model.encoder.layers:
+            x = layer(x, src_mask)
+        return self.model.encoder.norm(x)
+
+    def object_tokens(self, ep: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B*K, 1, d) object tokens: raw proposal feature (+ encoded memory)."""
+        cfg = self.cfg
+        feats = ep["aggregated_vote_features"]
+        b, k, c = feats.shape
+        if not cfg.use_transformer_encoder:
+            return feats.reshape(b * k, 1, c)
+        src_pos = {
+            "xyz": lambda: ep["aggregated_vote_xyz"],
+            "center": lambda: ep["center"],
+            "loc": lambda: torch.cat([ep["center"], ep["pred_size"]], dim=-1),
+            None: lambda: None,
+        }[cfg.src_pos_type]()
+        src_mask = (ep["bbox_mask"] != 0)[:, None, :]
+        memory = self.encode(self.src_embed(feats, src_pos), src_mask)
+        return feats.reshape(b * k, 1, c) + memory.reshape(b * k, 1, c)
+
+    # ------------------------------------------------------------- decode
+    def _decode_step(self, w: _DecodeWeights, x, caches, pos: int, cross_kv):
+        """One decoder step for the newest token. x (R, 1, d) in dd; caches
+        per layer (k, v) of shape (R, h, Lmax, dk) in dd, slot ``pos``
+        written here. Returns the final-norm hidden (R, d) f32."""
+        cfg, dd = self.cfg, w.dd
+        h, d = cfg.num_heads, cfg.d_model
+        scale = math.sqrt(d // h)
+
+        def norm(ln, x):
+            return ref_layer_norm(x.float(), *ln).to(dd)
+
+        for li, lw in enumerate(w.layers):
+            k_cache, v_cache = caches[li]
+            qkv = dense(norm(lw["ln0"], x).float(), lw["qkv_w"], lw["qkv_b"])
+            q = split_heads(qkv[..., :d], h)
+            k_cache[:, :, pos:pos + 1] = split_heads(qkv[..., d:2 * d], h).to(dd)
+            v_cache[:, :, pos:pos + 1] = split_heads(qkv[..., 2 * d:], h).to(dd)
+            keys = k_cache[:, :, :pos + 1].float()
+            vals = v_cache[:, :, :pos + 1].float()
+            scores = torch.matmul(q.to(dd).float(), keys.transpose(-1, -2)) / scale
+            probs = torch.softmax(scores, dim=-1)
+            att = torch.matmul(probs.to(dd).float(), vals)
+            x = x + dense(merge_heads(att).to(dd).float(), lw["o_w"], lw["o_b"]).to(dd)
+            if not cfg.early_guide:
+                ck, cv = cross_kv[li]
+                q = split_heads(dense(norm(lw["ln1"], x).float(), lw["src0_w"], lw["src0_b"]), h)
+                scores = torch.matmul(q.to(dd).float(), ck.float().transpose(-1, -2)) / scale
+                att = torch.matmul(torch.softmax(scores, dim=-1).to(dd).float(), cv.float())
+                x = x + dense(merge_heads(att).to(dd).float(), lw["src3_w"], lw["src3_b"]).to(dd)
+            hid = torch.relu(dense(norm(lw["ln2"], x).float(), lw["w1"], lw["b1"])).to(dd)
+            x = x + dense(hid.float(), lw["w2"], lw["b2"]).to(dd)
+        return ref_layer_norm(x.float(), *w.final_ln)[:, 0]
+
+    def start_decode(self, obj_token: torch.Tensor):
+        """Decode state for obj_token (R, 1, d): rounded weights, empty KV
+        caches (early guide: the object token already at position 0), the
+        late-guide cross K/V, and the position of the first caption token."""
+        cfg = self.cfg
+        w = _DecodeWeights(self.model, cfg, getattr(torch, cfg.eval_decode_dtype))
+        dd, r, dev = w.dd, obj_token.shape[0], obj_token.device
+        h, dk = cfg.num_heads, cfg.d_model // cfg.num_heads
+        offset = 1 if cfg.early_guide else 0
+        lmax = cfg.max_des_len + 2 + offset
+        caches = [(torch.zeros((r, h, lmax, dk), dtype=dd, device=dev),
+                   torch.zeros((r, h, lmax, dk), dtype=dd, device=dev))
+                  for _ in range(cfg.num_layers)]
+        cross_kv = None
+        if not cfg.early_guide:
+            obj = obj_token.to(dd).float()
+            cross_kv = [(split_heads(dense(obj, lw["src1_w"], lw["src1_b"]), h).to(dd),
+                         split_heads(dense(obj, lw["src2_w"], lw["src2_b"]), h).to(dd))
+                        for lw in w.layers]
+        else:
+            self._decode_step(w, obj_token.to(dd), caches, 0, cross_kv)
+        return w, caches, cross_kv, offset
+
+    def next_logits(self, w: _DecodeWeights, token, i: int, caches, offset: int, cross_kv):
+        """f32 logits (R, vocab) of step i, fed the previous tokens (R,)."""
+        # embedding * sqrt(d) + PE, rounded once (XLA fuses the two ops)
+        emb = (w.lut[token][:, None] * w.sqrt_d + w.pe[i]).to(w.dd)
+        hid = self._decode_step(w, emb, caches, i + offset, cross_kv)
+        return dense(hid.to(w.dd).float(), w.gen_w, w.gen_b)
+
+    def greedy_decode(self, obj_token: torch.Tensor) -> torch.Tensor:
+        """obj_token (R, 1, d) f32 -> tokens (R, max_des_len + 1) int32."""
+        cfg = self.cfg
+        w, caches, cross_kv, offset = self.start_decode(obj_token)
+        n_steps = cfg.max_des_len + 1
+        n_stages = min(max(1, int(cfg.eval_decode_stages)), n_steps)
+        stage_ends = {round(n_steps * (s + 1) / n_stages) for s in range(n_stages)}
+        token = torch.full((obj_token.shape[0],), SOS_ID, dtype=torch.long,
+                           device=obj_token.device)
+        tokens = []
+        for i in range(n_steps):
+            logits = self.next_logits(w, token, i, caches, offset, cross_kv)
+            token = torch.argmax(logits, dim=-1)            # first max, f32 logits
+            tokens.append(token)
+            if cfg.eval_decode_early_exit and i + 1 in stage_ends and i + 1 < n_steps:
+                # stage boundary: once every row has emitted EOS, the later
+                # stages' slots are EOS (the harness truncates at EOS)
+                if bool(torch.stack(tokens, 0).eq(EOS_ID).any(0).all()):
+                    tokens += [torch.full_like(token, EOS_ID)] * (n_steps - i - 1)
+                    break
+        return torch.stack(tokens, dim=1).to(torch.int32)
+
+    def forward(self, ep: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Greedy captions for every proposal: (B, K, max_des_len + 1) int32."""
+        b, k, _ = ep["aggregated_vote_features"].shape
+        return self.greedy_decode(self.object_tokens(ep)).reshape(b, k, -1)

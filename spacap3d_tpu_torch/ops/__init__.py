@@ -1,0 +1,16 @@
+"""Geometry ops of the eval forward. FPS and ball query have CUDA kernels
+(``csrc/``); the rest is plain PyTorch."""
+
+from spacap3d_tpu_torch.ops.ball_query import ball_query, ball_query_plain  # noqa: F401
+from spacap3d_tpu_torch.ops.boxes import get_3d_box_batch  # noqa: F401
+from spacap3d_tpu_torch.ops.fps import (  # noqa: F401
+    furthest_point_sample,
+    furthest_point_sample_plain,
+)
+from spacap3d_tpu_torch.ops.grouping import (  # noqa: F401
+    gather_points,
+    group_and_localize,
+    group_points,
+)
+from spacap3d_tpu_torch.ops.interpolate import three_interpolate, three_nn  # noqa: F401
+from spacap3d_tpu_torch.ops.nn_distance import nn_distance  # noqa: F401
