@@ -6,11 +6,12 @@
 Builds the CUDA kernels from ``spacap3d_tpu_torch/csrc``, holds each kernel
 against its plain PyTorch version at every shape the eval forward gives it,
 drives the eval forward at full width (default ModelConfig, B=8, 40,000
-points) through ``make_eval_step``, checks that the forward launched the
-kernels, and compares the port on the CPU with the port on the card at a
-reduced size. Exits non-zero if any phase fails or if CUDA is missing.
-Prints a line per phase, a ``kernels`` JSON line and, last,
-``{"ok": true, "device": ...}``.
+points) through ``make_eval_step``, unfused and with ``eval_decode_fused``
+(the fused decode kernels), checks that each forward launched its kernels,
+compares the two forwards' tokens and times them in alternation, and
+compares the port on the CPU with the port on the card at a reduced size.
+Exits non-zero if any phase fails or if CUDA is missing. Prints a line per
+phase, a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 """
 import copy
 import dataclasses
@@ -25,13 +26,15 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from spacap3d_tpu_torch import ops
-from spacap3d_tpu_torch.config import ModelConfig
+from spacap3d_tpu_torch.config import SOS_ID, ModelConfig
 from spacap3d_tpu_torch.models import init_spacap
 from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.train.step import eval_tail, make_eval_step, to_device_batch
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, dense
+# bf16 on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 B = 8
@@ -39,14 +42,20 @@ DEV = "cuda"
 FPS_SHAPES = [(40000, 2048), (1024, 256)]                 # (N, npoint): SA1, aggregation
 BQ_SHAPES = [(40000, 2048, 0.2, 64), (2048, 1024, 0.4, 32), (1024, 512, 0.8, 16),
              (512, 256, 1.2, 16), (1024, 256, 0.3, 16)]   # (N, m, r, ns): SA1-4, aggregation
+KERNELS = {"fps": ops.furthest_point_sample, "ball_query": ops.ball_query,
+           "generator_argmax": ops.generator_argmax, "ffn": ops.ffn}
+# greedy decode rows B * K = 2048 at d 128: vocab 4528, d_ff 2048
+GEN_SHAPES = [(2048, 4528, True), (2000, 4500, False)]   # (R, vocab, on the main path)
+FFN_SHAPES = [(2048, 2048, True), (2000, 2048, False)]   # (R, d_ff, on the main path)
+D_MODEL = 128
 
 
 def log(phase, **kw):
     print(f"[{phase}] " + json.dumps(kw), flush=True)
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -148,34 +157,128 @@ def phase_kernels():
     return results
 
 
-def phase_eval_forward():
-    cfg = ModelConfig()
-    rng = np.random.RandomState(0)
-    _, point_clouds = bench_points(rng, B, cfg.num_points)
-    center_label = rng.rand(B, 128, 3).astype(np.float32) * 6.0
-    batch = {"point_clouds": point_clouds, "center_label": center_label}
-    model = init_spacap(cfg, seed=0, device=DEV)
-    step = make_eval_step(cfg, device=DEV)
-    kernels = (ops.furthest_point_sample, ops.ball_query)
+def bf16_uniform(rng, shape, limit):
+    return torch.from_numpy(rng.uniform(-limit, limit, shape).astype(np.float32)).to(
+        DEV).bfloat16()
 
-    def forward_counted():
-        before = [k.launches for k in kernels]
-        out = step(model, batch)
-        torch.cuda.synchronize()
-        got = [k.launches - b0 for k, b0 in zip(kernels, before)]
-        if got != [2, 5]:
-            raise AssertionError(f"launches per forward {got}, want [2, 5]")
-        return out
 
-    for k in kernels:
-        k.launches = 0
-    out = step(model, batch)
+def gen_check(x, w, b, vocab):
+    """The kernel's indices against the plain f32 logits. Two f32 sums of
+    the same d exact bf16 products in other orders differ by at most
+    d * 2^-23 * S each (S = the row's largest sum of |terms| over the
+    columns; 2^-23 allows the tensor cores' truncating accumulation), so a
+    row whose top-2 plain logits are further apart than 2 d 2^-23 S must
+    give the plain index, and every row must pick a column within that
+    bound of the max. ``max_abs_err`` is the largest such shortfall."""
+    got = ops.generator_argmax(x, w, b, vocab)
+    logits = x.float() @ w[:vocab].float().t() + b[:vocab].float()
+    want = torch.argmax(logits, dim=-1)
+    s = (x.float().abs() @ w[:vocab].float().abs().t() + b[:vocab].float().abs()).amax(-1)
+    tol = 2 * x.shape[1] * 2.0 ** -23 * s
+    top2 = logits.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) <= tol
+    short = top2[:, 0] - logits.gather(1, got.clamp(0, vocab - 1)[:, None])[:, 0]
     torch.cuda.synchronize()
-    launches = {"fps": ops.furthest_point_sample.launches,
-                "ball_query": ops.ball_query.launches}
-    if [launches["fps"], launches["ball_query"]] != [2, 5]:
-        raise AssertionError(f"main path launches {launches}, want fps 2, ball_query 5")
+    if int(got.max()) >= vocab or int(got.min()) < 0:
+        raise AssertionError(f"generator_argmax vocab={vocab}: index out of range")
+    if bool((short > tol).any()) or bool((got != want)[~near].any()):
+        raise AssertionError(f"generator_argmax R={x.shape[0]} vocab={vocab}: kernel picks a "
+                             f"column below the max by more than the reassociation bound")
+    return {"max_abs_err": float(short.max()), "rows": int(x.shape[0]),
+                 "rows_in_tie_bound": int(near.sum()),
+                 "rows_index_differs": int((got != want).sum()),
+                 "tie_bound_max": float(tol.max())}
 
+
+def gen_exact_case(rng):
+    """Exact arithmetic: x on a 2^-6 grid in [-1, 1], w on a 2^-4 grid, so
+    every logit is a multiple of 2^-10 below 2^10 and any summation order
+    gives the same f32 value. Columns 37, 53 (another warp) and 677
+    (another tile) are equal and lead on most rows: the lowest must win.
+    All real biases are -16, so a padded column (logit 0) would win if it
+    were a candidate; vocab 1000 is no multiple of 16 or of 128."""
+    r, vocab, d = 100, 1000, D_MODEL
+    x = np.round(rng.uniform(-1, 1, (r, d)) * 64) / 64
+    x[:, 0] = 255 / 64
+    w = np.round(rng.uniform(-0.125, 0.125, (vocab, d)) * 16) / 16
+    w[:, 0] = 0.0
+    w[37, 0] = 2.0
+    w[[53, 677]] = w[37]
+    b = np.full((vocab,), -16.0)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(DEV).bfloat16()  # noqa: E731
+    wp, bp = ops.pad_generator(to(w), to(b))
+    got = ops.generator_argmax(to(x), wp, bp, vocab)
+    want = ops.generator_argmax_plain(to(x), wp, bp, vocab)
+    torch.cuda.synchronize()
+    lead = int((want == 37).sum())
+    res = {"rows": r, "vocab": vocab, "rows_led_by_tie": lead,
+           "equal": bool(torch.equal(got, want)), "max_index": int(got.max())}
+    log("kernels", kernel="generator_argmax", case="exact ties and padding", **res)
+    if not res["equal"] or lead < r // 2 or bool(((got == 53) | (got == 677)).any()):
+        raise AssertionError(f"generator_argmax exact case: {res}")
+
+
+def phase_decode_kernels():
+    """The fused decode kernels against their plain versions at the main-path
+    shapes, a ragged R and vocab, and exact ties; timed beside the plain
+    version and cuBLAS's bf16 composite."""
+    results = {"generator_argmax": [], "ffn": []}
+    rng = np.random.RandomState(2)
+    d = D_MODEL
+    for r, vocab, main in GEN_SHAPES:
+        # the final-norm hidden, and the xavier / torch-default init ranges
+        x = torch.from_numpy(rng.randn(r, d).astype(np.float32)).to(DEV).bfloat16()
+        w, b = ops.pad_generator(bf16_uniform(rng, (vocab, d), np.sqrt(6 / (d + vocab))),
+                                 bf16_uniform(rng, (vocab,), 1 / np.sqrt(d)))
+        row = gen_check(x, w, b, vocab)
+        wv, bv = w[:vocab], b[:vocab]
+        row.update(
+            shape=[r, d, vocab], main_path=main,
+            ms=cuda_ms(lambda: ops.generator_argmax(x, w, b, vocab), reps=20),
+            plain_ms=cuda_ms(lambda: ops.generator_argmax_plain(x, w, b, vocab), reps=20),
+            library_ms=cuda_ms(lambda: torch.argmax(torch.addmm(bv, x, wv.t()), -1), reps=20),
+            library="composite: torch.argmax(torch.addmm(b, x, W^T)) in bf16")
+        row["bound_ms"], row["bound_by"] = bound(
+            2.0 * r * d * vocab, 2 * (r * d + vocab * d + vocab) + 8 * r, PEAK_BF16_FLOPS)
+        log("kernels", kernel="generator_argmax", **row)
+        results["generator_argmax"].append(row)
+    gen_exact_case(rng)
+    # output tolerance rtol = atol = 2^-7 (tests/test_decode_pallas.py
+    # allows 2e-2): the two sides sum the same exact bf16 products in f32 in
+    # other orders, so an output may round to its neighbouring bf16 value
+    # (2^-8 of |y|), and so may a hidden value, which moves y by
+    # 2^-8 |h| |w2|, below 2^-8 at these init ranges
+    for r, f, main in FFN_SHAPES:
+        x = torch.from_numpy(rng.randn(r, d).astype(np.float32)).to(DEV).bfloat16()
+        lim = np.sqrt(6 / (d + f))
+        w1, b1 = bf16_uniform(rng, (f, d), lim), bf16_uniform(rng, (f,), 1 / np.sqrt(d))
+        w2, b2 = bf16_uniform(rng, (d, f), lim), bf16_uniform(rng, (d,), 1 / np.sqrt(f))
+        got = ops.ffn(x, w1, b1, w2, b2).float()
+        want = ops.ffn_plain(x, w1, b1, w2, b2).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        rtol = atol = 2.0 ** -7
+        if not bool(torch.isfinite(got).all()) or bool((err > atol + rtol * want.abs()).any()):
+            raise AssertionError(f"ffn R={r}: kernel != plain beyond rtol = atol = 2^-7 "
+                                 f"(max abs err {float(err.max())})")
+        big = want.abs() > atol
+        row = dict(shape=[r, d, f], main_path=main, max_abs_err=float(err.max()),
+                   max_rel_err=float((err[big] / want.abs()[big]).max()),
+                   share_not_bit_equal=float((got != want).float().mean()),
+                   max_abs_out=float(want.abs().max()), rtol=rtol, atol=atol,
+                   ms=cuda_ms(lambda: ops.ffn(x, w1, b1, w2, b2), reps=20),
+                   plain_ms=cuda_ms(lambda: ops.ffn_plain(x, w1, b1, w2, b2), reps=20),
+                   library_ms=cuda_ms(lambda: torch.addmm(
+                       b2, torch.relu(torch.addmm(b1, x, w1.t())), w2.t()), reps=20),
+                   library="composite: addmm -> relu -> addmm in bf16")
+        row["bound_ms"], row["bound_by"] = bound(
+            4.0 * r * d * f, 2 * (2 * r * d + 2 * f * d + f + d), PEAK_BF16_FLOPS)
+        log("kernels", kernel="ffn", **row)
+        results["ffn"].append(row)
+    return results
+
+
+def check_outputs(cfg, out):
     lc = out["lang_cap"]
     if tuple(lc.shape) != (B, cfg.num_proposals, cfg.max_des_len + 1):
         raise AssertionError(f"lang_cap shape {tuple(lc.shape)}")
@@ -184,47 +287,141 @@ def phase_eval_forward():
     for k, v in out.items():
         if v.is_floating_point() and not bool(torch.isfinite(v).all()):
             raise AssertionError(f"non-finite {k}")
-    shapes = {k: list(v.shape) for k, v in out.items()}
+    return {k: list(v.shape) for k, v in out.items()}
+
+
+def split_ms_once(path, dev_batch, splits):
+    """Coarse split of one forward, CUDA events around each part."""
+    cfg, model = path["cfg"], path["model"]
+    with torch.no_grad():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        ep = model.detect(dev_batch["point_clouds"])
+        ev[1].record()
+        obj = model.caption.object_tokens(ep)
+        ev[2].record()
+        toks = model.caption.greedy_decode(obj)
+        ev[3].record()
+        ep["lang_cap"] = toks.reshape(B, cfg.num_proposals, -1)
+        eval_tail(cfg, ep, dev_batch, compact=False)
+        ev[4].record()
+        torch.cuda.synchronize()
+    for j, name in enumerate(splits):
+        splits[name].append(ev[j].elapsed_time(ev[j + 1]))
+
+
+def compare_tokens(path, dev_batch, t_unfused, t_fused):
+    """Fused against unfused tokens. On a row that differs, the two tokens
+    at its first differing step must be within bf16 rounding of each other
+    in the unfused decode's f32 logits at that step (as the port-vs-JAX test
+    in tests/test_torch_models.py checks)."""
+    steps = t_unfused.shape[-1]
+    tu, tf = t_unfused.reshape(-1, steps).long(), t_fused.reshape(-1, steps).long()
+    neq = tu != tf
+    rows = torch.nonzero(neq.any(1))[:, 0]
+    res = {"rows": int(tu.shape[0]), "rows_differ": int(rows.numel()),
+           "tokens_differ": int(neq.sum())}
+    if not rows.numel():
+        return res
+    first = neq.int().argmax(1)[rows]
+    l_u = torch.empty(rows.numel(), device=DEV)
+    l_f = torch.empty(rows.numel(), device=DEV)
+    cap = path["model"].caption
+    with torch.no_grad():
+        obj = cap.object_tokens(path["model"].detect(dev_batch["point_clouds"]))
+        w, caches, cross_kv, offset = cap.start_decode(obj)
+        prev = torch.full((tu.shape[0],), SOS_ID, dtype=torch.long, device=DEV)
+        for i in range(int(first.max()) + 1):
+            logits = cap.next_logits(w, prev, i, caches, offset, cross_kv)
+            sel = first == i
+            r = rows[sel]
+            l_u[sel] = logits[r, tu[r, i]]
+            l_f[sel] = logits[r, tf[r, i]]
+            prev = tu[:, i]
+    gap = (l_u - l_f).abs()
+    rel = gap / l_u.abs().clamp(min=1.0)
+    res.update(first_step_min=int(first.min()), max_logit_gap=float(gap.max()),
+               max_gap_over_bf16_rounding=float(rel.max() / 2 ** -7))
+    if bool((rel > 2 ** -7).any()):
+        raise AssertionError(f"fused and unfused tokens differ beyond bf16 rounding: {res}")
+    return res
+
+
+def phase_eval_forward():
+    """The full-width eval forward, unfused (the default) and with the fused
+    decode kernels, on the same seeded weights and batch."""
+    cfg = ModelConfig()
+    rng = np.random.RandomState(0)
+    _, point_clouds = bench_points(rng, B, cfg.num_points)
+    center_label = rng.rand(B, 128, 3).astype(np.float32) * 6.0
+    batch = {"point_clouds": point_clouds, "center_label": center_label}
+    dev_batch = to_device_batch(batch, DEV)
+    n_steps = cfg.max_des_len + 1
+    paths = {
+        "unfused": {"cfg": cfg, "want": {"fps": 2, "ball_query": 5,
+                                         "generator_argmax": 0, "ffn": 0}},
+        "fused": {"cfg": dataclasses.replace(cfg, eval_decode_fused=True),
+                  "want": {"fps": 2, "ball_query": 5, "generator_argmax": n_steps,
+                           "ffn": cfg.num_layers * (n_steps + int(cfg.early_guide))}},
+    }
+    for p in paths.values():     # the flag travels in the model's config
+        p["model"] = init_spacap(p["cfg"], seed=0, device=DEV)
+        p["step"] = make_eval_step(p["cfg"], device=DEV)
+    sd_u, sd_f = (paths[n]["model"].state_dict() for n in ("unfused", "fused"))
+    if not all(torch.equal(sd_u[k], sd_f[k]) for k in sd_u):
+        raise AssertionError("the two seeded models differ")
+
+    def forward(name):
+        p = paths[name]
+        before = {k: f.launches for k, f in KERNELS.items()}
+        out = p["step"](p["model"], batch)
+        torch.cuda.synchronize()
+        got = {k: f.launches - before[k] for k, f in KERNELS.items()}
+        if got != p["want"]:
+            raise AssertionError(f"{name} forward launched {got}, want {p['want']}")
+        return out
+
+    # each path's main run: every count set to 0 just before, read just after
+    launches, outs, shapes = {}, {}, {}
+    for name in paths:
+        for k in KERNELS.values():
+            k.launches = 0
+        outs[name] = forward(name)
+        launches[name] = {k: f.launches for k, f in KERNELS.items()}
+        shapes[name] = check_outputs(cfg, outs[name])
+    tokens = compare_tokens(paths["unfused"], dev_batch, outs["unfused"]["lang_cap"],
+                            outs["fused"]["lang_cap"])
 
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(6):
+    times = {name: [] for name in paths}
+    for name in ["unfused", "fused", "fused", "unfused"] * 5:   # in turns, one machine
         t0 = time.perf_counter()
-        forward_counted()
-        if i:                                   # the first is warm-up
-            times.append(time.perf_counter() - t0)
-    med = float(np.median(times))
-
-    # coarse split, CUDA events around each part of the same forward
-    dev_batch = to_device_batch(batch, DEV)
-    splits = {"trunk": [], "encode": [], "decode": [], "tail": []}
-    with torch.no_grad():
-        for _ in range(3):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-            ev[0].record()
-            ep = model.detect(dev_batch["point_clouds"])
-            ev[1].record()
-            obj = model.caption.object_tokens(ep)
-            ev[2].record()
-            toks = model.caption.greedy_decode(obj)
-            ev[3].record()
-            ep["lang_cap"] = toks.reshape(B, cfg.num_proposals, -1)
-            eval_tail(cfg, ep, dev_batch, compact=False)
-            ev[4].record()
-            torch.cuda.synchronize()
-            for j, name in enumerate(splits):
-                splits[name].append(ev[j].elapsed_time(ev[j + 1]))
-    split_ms = {k: float(np.median(v)) for k, v in splits.items()}
-    prof = device_profile(forward_counted)
-    if "device_busy_ms" in prof:
-        prof["device_busy_share"] = prof["device_busy_ms"] / (med * 1e3)
-    log("eval_forward", batch=B, num_points=cfg.num_points, proposals=cfg.num_proposals,
-        decode_dtype=cfg.eval_decode_dtype, decode_stages=cfg.eval_decode_stages,
-        launches=launches, outputs=shapes, forward_s=med, forward_s_all=times,
-        scenes_per_s=B / med, split_ms=split_ms,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    log("profile", **prof)
-    return launches
+        forward(name)
+        times[name].append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    splits = {name: {"trunk": [], "encode": [], "decode": [], "tail": []} for name in paths}
+    for name in ["unfused", "fused", "fused", "unfused"] * 2:
+        split_ms_once(paths[name], dev_batch, splits[name])
+    summary = {}
+    for name in paths:
+        med = float(np.median(times[name]))
+        prof = device_profile(lambda: forward(name))
+        if "device_busy_ms" in prof:
+            prof["device_busy_share"] = prof["device_busy_ms"] / (med * 1e3)
+        split_ms = {k: float(np.median(v)) for k, v in splits[name].items()}
+        log("eval_forward", path=name, batch=B, num_points=cfg.num_points,
+            proposals=cfg.num_proposals, decode_dtype=cfg.eval_decode_dtype,
+            decode_stages=cfg.eval_decode_stages, launches=launches[name],
+            outputs=shapes[name], forward_s=med, forward_s_all=times[name],
+            scenes_per_s=B / med, split_ms=split_ms, peak_mem_gib=peak)
+        log("profile", path=name, **prof)
+        summary[name] = {"scenes_per_s": B / med, "decode_ms": split_ms["decode"],
+                         "device_busy_ms": prof.get("device_busy_ms"),
+                         "device_spans": prof.get("device_spans")}
+    log("fused_vs_unfused", tokens=tokens, **summary)
+    return {"fps": launches["unfused"]["fps"], "ball_query": launches["unfused"]["ball_query"],
+            "generator_argmax": launches["fused"]["generator_argmax"],
+            "ffn": launches["fused"]["ffn"]}
 
 
 def device_profile(fn):
@@ -296,6 +493,7 @@ def main() -> int:
     print(_build.ptxas_report(), flush=True)
 
     per_shape = phase_kernels()
+    per_shape.update(phase_decode_kernels())
     launches = phase_eval_forward()
     phase_cpu_vs_gpu()
 
@@ -303,19 +501,26 @@ def main() -> int:
         "fps": ("spacap3d_tpu_torch/csrc/fps.cu", "spacap3d_tpu/ops/fps_pallas.py:35"),
         "ball_query": ("spacap3d_tpu_torch/csrc/ball_query.cu",
                        "spacap3d_tpu/ops/ball_query_pallas.py:50"),
+        "generator_argmax": ("spacap3d_tpu_torch/csrc/decode.cu",
+                             "spacap3d_tpu/ops/decode_pallas.py:57"),
+        "ffn": ("spacap3d_tpu_torch/csrc/decode.cu", "spacap3d_tpu/ops/decode_pallas.py:127"),
     }
     kernels = []
     for name, rows in per_shape.items():
-        # one forward's worth: the sum over the shapes the main path gives it
+        # per call, summed over the distinct shapes the main path gives it
+        # (FPS and ball query launch once at each; the decode kernels 31 and
+        # 192 times at one shape); ragged and tie shapes are checks only
+        main = [r for r in rows if r.get("main_path", True)]
+        lib = [r.get("library_ms") for r in main]
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
-            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": None,
+            "ms": sum(r["ms"] for r in main),
+            "plain_ms": sum(r["plain_ms"] for r in main),
+            "bound_ms": sum(r["bound_ms"] for r in main),
+            "bound_by": max(main, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": None if None in lib else sum(lib),
             "per_shape": rows,
         })
     print(smi, flush=True)

@@ -73,8 +73,11 @@ class ModelConfig:
     # Skip the remaining stages once every row has emitted EOS, filling
     # their token slots with EOS.
     eval_decode_early_exit: bool = False
-    # Fused decode kernels (generator argmax, FFN). Accepted for config
-    # compatibility; the port does not have these kernels yet.
+    # Fused decode kernels (ops/decode.py, csrc/decode.cu): each FFN and the
+    # generator's argmax run as one kernel, the hidden layer and the logits
+    # kept on chip. They engage only for a bf16 decode on CUDA tensors (the
+    # JAX package: bf16 on a TPU); otherwise the flag changes nothing. Off
+    # by default, as in the JAX package, until a measurement says otherwise.
     eval_decode_fused: bool = False
 
     @property

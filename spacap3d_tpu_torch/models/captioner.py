@@ -12,6 +12,9 @@
   accumulates in f32 before its cast, and the argmax runs on f32 logits.
   Each step attends over the valid cache prefix, which gives the softmax
   of the JAX package's masked full-length (or staged) caches.
+* ``eval_decode_fused`` with a bf16 decode on CUDA tensors runs each FFN
+  and the generator's argmax as one fused kernel (``ops/decode.py``), as
+  the JAX package runs its Pallas kernels for a bf16 decode on a TPU.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from spacap3d_tpu_torch import ops
 from spacap3d_tpu_torch.config import EOS_ID, SOS_ID, ModelConfig
 from spacap3d_tpu_torch.models.core import (
     BatchNorm,
@@ -163,14 +167,24 @@ class TransformerModel(nn.Module):
         self.generator = Generator(d, cfg.vocab_size)
 
 
+def decode_fused(cfg: ModelConfig, dd: torch.dtype, device: torch.device) -> bool:
+    """The JAX gate (flag, bf16 decode, TPU backend), with CUDA for the TPU."""
+    return bool(cfg.eval_decode_fused) and dd == torch.bfloat16 and device.type == "cuda"
+
+
 class _DecodeWeights:
     """The decoder's weights rounded to the decode dtype once per call and
     held in f32, so every matmul multiplies the rounded operands with f32
-    accumulation (the products of bf16 values are exact in f32)."""
+    accumulation (the products of bf16 values are exact in f32). A fused
+    decode also keeps bf16 copies of the FFN and generator weights in the
+    kernels' layout, built here, outside the step loop."""
 
     def __init__(self, model: TransformerModel, cfg: ModelConfig, dd: torch.dtype):
         def rnd(t):
             return t.detach().to(dd).float()
+
+        def bf16(t):
+            return t.detach().to(torch.bfloat16).contiguous()
 
         self.layers = []
         for layer in model.decoder.layers:
@@ -191,11 +205,20 @@ class _DecodeWeights:
                 w.update({f"src{i}_w": rnd(src[i].matrix()) for i in range(4)})
                 w.update({f"src{i}_b": rnd(src[i].bias) for i in range(4)})
             self.layers.append(w)
+        lut = model.tgt_embed[0].lut.weight
         self.dd = dd
+        self.fused = decode_fused(cfg, dd, lut.device)
+        if self.fused:
+            for w, layer in zip(self.layers, model.decoder.layers):
+                ff = layer.feed_forward
+                w["ffn"] = (bf16(ff.w_1.matrix()), bf16(ff.w_1.bias),
+                            bf16(ff.w_2.matrix()), bf16(ff.w_2.bias))
+            proj = model.generator.proj
+            self.gen = ops.pad_generator(bf16(proj.matrix()), bf16(proj.bias))
+        self.vocab = cfg.vocab_size
         self.final_ln = (rnd(model.decoder.norm.a_2), rnd(model.decoder.norm.b_2))
         self.gen_w = rnd(model.generator.proj.matrix())
         self.gen_b = rnd(model.generator.proj.bias)
-        lut = model.tgt_embed[0].lut.weight
         self.lut = rnd(lut)
         self.pe = rnd(sinusoid_pe(cfg.max_des_len + 4, cfg.d_model, lut.device))
         self.sqrt_d = rnd(torch.tensor(math.sqrt(cfg.d_model), device=lut.device))
@@ -271,8 +294,12 @@ class Captioner(nn.Module):
                 scores = torch.matmul(q.to(dd).float(), ck.float().transpose(-1, -2)) / scale
                 att = torch.matmul(torch.softmax(scores, dim=-1).to(dd).float(), cv.float())
                 x = x + dense(merge_heads(att).to(dd).float(), lw["src3_w"], lw["src3_b"]).to(dd)
-            hid = torch.relu(dense(norm(lw["ln2"], x).float(), lw["w1"], lw["b1"])).to(dd)
-            x = x + dense(hid.float(), lw["w2"], lw["b2"]).to(dd)
+            xn = norm(lw["ln2"], x)
+            if w.fused:
+                x = x + ops.ffn(xn[:, 0], *lw["ffn"])[:, None]
+            else:
+                hid = torch.relu(dense(xn.float(), lw["w1"], lw["b1"])).to(dd)
+                x = x + dense(hid.float(), lw["w2"], lw["b2"]).to(dd)
         return ref_layer_norm(x.float(), *w.final_ln)[:, 0]
 
     def start_decode(self, obj_token: torch.Tensor):
@@ -298,12 +325,24 @@ class Captioner(nn.Module):
             self._decode_step(w, obj_token.to(dd), caches, 0, cross_kv)
         return w, caches, cross_kv, offset
 
+    def _step_hidden(self, w: _DecodeWeights, token, i: int, caches, offset: int, cross_kv):
+        """Final-norm hidden (R, d) f32 of step i, fed the previous tokens (R,)."""
+        # embedding * sqrt(d) + PE: both ops are in dd, so each rounds
+        emb = ((w.lut[token][:, None] * w.sqrt_d).to(w.dd).float() + w.pe[i]).to(w.dd)
+        return self._decode_step(w, emb, caches, i + offset, cross_kv)
+
     def next_logits(self, w: _DecodeWeights, token, i: int, caches, offset: int, cross_kv):
         """f32 logits (R, vocab) of step i, fed the previous tokens (R,)."""
-        # embedding * sqrt(d) + PE, rounded once (XLA fuses the two ops)
-        emb = (w.lut[token][:, None] * w.sqrt_d + w.pe[i]).to(w.dd)
-        hid = self._decode_step(w, emb, caches, i + offset, cross_kv)
+        hid = self._step_hidden(w, token, i, caches, offset, cross_kv)
         return dense(hid.to(w.dd).float(), w.gen_w, w.gen_b)
+
+    def next_token(self, w: _DecodeWeights, token, i: int, caches, offset: int, cross_kv):
+        """Greedy token (R,) int64 of step i: the first maximum of the f32
+        logits, which the fused generator kernel never writes."""
+        if not w.fused:
+            return torch.argmax(self.next_logits(w, token, i, caches, offset, cross_kv), dim=-1)
+        hid = self._step_hidden(w, token, i, caches, offset, cross_kv)
+        return ops.generator_argmax(hid.to(w.dd), *w.gen, w.vocab)
 
     def greedy_decode(self, obj_token: torch.Tensor) -> torch.Tensor:
         """obj_token (R, 1, d) f32 -> tokens (R, max_des_len + 1) int32."""
@@ -316,8 +355,7 @@ class Captioner(nn.Module):
                            device=obj_token.device)
         tokens = []
         for i in range(n_steps):
-            logits = self.next_logits(w, token, i, caches, offset, cross_kv)
-            token = torch.argmax(logits, dim=-1)            # first max, f32 logits
+            token = self.next_token(w, token, i, caches, offset, cross_kv)
             tokens.append(token)
             if cfg.eval_decode_early_exit and i + 1 in stage_ends and i + 1 < n_steps:
                 # stage boundary: once every row has emitted EOS, the later

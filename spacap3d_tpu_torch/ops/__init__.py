@@ -1,8 +1,16 @@
-"""Geometry ops of the eval forward. FPS and ball query have CUDA kernels
-(``csrc/``); the rest is plain PyTorch."""
+"""Ops of the eval forward. FPS, ball query and the fused decode kernels
+(generator argmax, FFN) have CUDA kernels (``csrc/``); the rest is plain
+PyTorch."""
 
 from spacap3d_tpu_torch.ops.ball_query import ball_query, ball_query_plain  # noqa: F401
 from spacap3d_tpu_torch.ops.boxes import get_3d_box_batch  # noqa: F401
+from spacap3d_tpu_torch.ops.decode import (  # noqa: F401
+    ffn,
+    ffn_plain,
+    generator_argmax,
+    generator_argmax_plain,
+    pad_generator,
+)
 from spacap3d_tpu_torch.ops.fps import (  # noqa: F401
     furthest_point_sample,
     furthest_point_sample_plain,

@@ -102,6 +102,10 @@ def library() -> ctypes.CDLL:
     lib.spacap_ball_query.argtypes = [vp, vp, i32, i32, i32, ctypes.c_float,
                                       i32, vp, vp]
     lib.spacap_ball_query.restype = i32
+    lib.spacap_generator_argmax.argtypes = [vp, vp, vp, i32, i32, i32, vp, vp]
+    lib.spacap_generator_argmax.restype = i32
+    lib.spacap_ffn.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp, vp]
+    lib.spacap_ffn.restype = i32
     _lib = lib
     return lib
 

@@ -1,0 +1,190 @@
+"""The port's fused decode kernels (``ops/decode.py``) against the JAX
+package's Pallas kernels (``ops/decode_pallas.py``) on the CPU, and the
+captioner's fused path against its unfused path and against JAX.
+
+On CPU tensors the wrappers take their plain versions, which repeat the
+captioner's unfused op sequence. The Pallas kernels run in interpret mode,
+as ``tests/test_decode_pallas.py`` runs them. Inputs come from numpy seeds.
+
+Tolerances: argmax indices exactly equal (ties included). FFN outputs within
+rtol = atol = 2^-7 (tests/test_decode_pallas.py allows 2e-2): both sides
+sum the same exact bf16 products in f32 in other orders, so an output can
+round to its neighbouring bf16 value (2^-8 relative), and a hidden value can
+too, which moves an output by 2^-8 |h| |w2| <= 2^-8 at these scales."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from __graft_entry__ import _flagship_cfg
+from spacap3d_tpu.ops import decode_pallas as dp
+from spacap3d_tpu_torch import ops
+from spacap3d_tpu_torch.config import ModelConfig
+from spacap3d_tpu_torch.models import captioner as tcap
+from spacap3d_tpu_torch.ops import decode as dops
+from test_torch_models import (
+    _decode_both,
+    _proposals,
+    assert_tokens_match_or_tie,
+    jax_model,
+    port_model,
+)
+
+FFN_RTOL = FFN_ATOL = 2.0 ** -7
+
+
+def _bf16(a):
+    """numpy f32 -> (jax bf16, torch bf16) holding the same values."""
+    j = jnp.asarray(a.astype(np.float32)).astype(jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,d,vocab", [(64, 32, 300), (128, 32, 1030), (256, 128, 4528)])
+def test_generator_argmax_plain_matches_pallas_interpret(n, d, vocab):
+    rng = np.random.RandomState(0)
+    xj, xt = _bf16(rng.randn(n, d))
+    wj, wt = _bf16(rng.randn(d, vocab) * 0.1)
+    bj, bt = _bf16(rng.randn(vocab) * 0.1)
+    wp, bp, v = dp.pad_generator({"kernel": wj, "bias": bj}, vocab, v_tile=512)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax.jit(lambda x: dp.generator_argmax(x, wp, bp, v))(xj))
+    got = ops.generator_argmax(xt, *ops.pad_generator(wt.t().contiguous(), bt), vocab).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert int(got.max()) < vocab
+
+
+def test_generator_argmax_tie_across_tiles_takes_first():
+    x = np.ones((8, 16), np.float32)
+    w = np.zeros((16, 16), np.float32)
+    w[:, 3] = 1.0
+    w[:, 11] = 1.0
+    xj, xt = _bf16(x)
+    wj, wt = _bf16(w)
+    bj, bt = _bf16(np.zeros(16))
+    wp, bp, v = dp.pad_generator({"kernel": wj, "bias": bj}, 16, v_tile=8)  # two tiles
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(dp.generator_argmax(xj, wp, bp, v, v_tile=8))
+    got = ops.generator_argmax(xt, wt.t().contiguous(), bt, 16).numpy()
+    assert want.tolist() == [3] * 8
+    assert got.tolist() == [3] * 8
+
+
+def test_padded_generator_columns_never_win():
+    """Real logits all negative, padded rows zero: an unmasked pad would win."""
+    rng = np.random.RandomState(1)
+    _, xt = _bf16(rng.randn(20, 32))
+    _, wt = _bf16(rng.randn(37, 32) * 0.01)
+    _, bt = _bf16(np.full(37, -4.0))
+    w, b = ops.pad_generator(wt, bt)
+    assert w.shape == (48, 32) and b.shape == (48,) and not w[37:].any()
+    got = ops.generator_argmax(xt, w, b, 37)
+    want = torch.argmax(xt.float() @ wt.float().t() + bt.float(), -1)
+    assert torch.equal(got, want) and int(got.max()) < 37
+
+
+@pytest.mark.parametrize("n", [32, 1024, 1000])   # single block, gridded, XLA composite
+def test_ffn_plain_matches_pallas_interpret(n):
+    rng = np.random.RandomState(1)
+    xj, xt = _bf16(rng.randn(n, 32))
+    w1j, w1t = _bf16(rng.randn(32, 64) * 0.2)
+    b1j, b1t = _bf16(rng.randn(64) * 0.2)
+    w2j, w2t = _bf16(rng.randn(64, 32) * 0.2)
+    b2j, b2t = _bf16(rng.randn(32) * 0.2)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.jit(lambda x: dp.ffn(x, w1j, b1j, w2j, b2j))(xj)
+    got = ops.ffn(xt, w1t.t().contiguous(), b1t, w2t.t().contiguous(), b2t)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, 32)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=FFN_RTOL, atol=FFN_ATOL)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.zeros(4, 24, dtype=torch.bfloat16)                  # d not a multiple of 16
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.generator_argmax(x, torch.zeros(16, 24, dtype=torch.bfloat16),
+                             torch.zeros(16, dtype=torch.bfloat16), 16)
+    x = torch.zeros(4, 32)
+    w1, b1 = torch.zeros(64, 32), torch.zeros(64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.ffn(x, w1, b1, torch.zeros(32, 64), torch.zeros(32))
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="shape"):                # vocab not padded to 16
+        ops.generator_argmax(x.to(bf), torch.zeros(20, 32, dtype=bf), torch.zeros(20, dtype=bf), 20)
+    meta = torch.zeros(4, 32, dtype=bf, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ops.ffn(meta, *(t.to(bf).to("meta") for t in (w1, b1, torch.zeros(32, 64), torch.zeros(32))))
+
+
+def _tiny(**kw):
+    return dataclasses.replace(_flagship_cfg(tiny=True), eval_decode_dtype="bfloat16", **kw)
+
+
+def _count_calls(monkeypatch):
+    """Counts calls of the two wrappers from the captioner (CPU calls are
+    not launches, so the wrappers' own counters stay put)."""
+    calls = {"ffn": 0, "generator_argmax": 0}
+    for name in calls:
+        fn = getattr(ops, name)
+
+        def counted(*a, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(*a)
+        monkeypatch.setattr(ops, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("early_guide", [True, False])
+@pytest.mark.parametrize("stages", [1, 4])
+def test_fused_decode_tokens_equal_unfused_on_cpu(monkeypatch, early_guide, stages):
+    """The fused branch, forced on for CPU tensors, runs the wrappers' plain
+    versions and gives the unfused decode's tokens bit for bit."""
+    cfg = _tiny(eval_decode_stages=stages, early_guide=early_guide)
+    model = port_model(cfg, jax_model(cfg, 1)[2])
+    ep = {k: torch.from_numpy(v) for k, v in _proposals(cfg, np.random.RandomState(0)).items()}
+    with torch.no_grad():
+        unfused = model.caption(ep)
+        calls = _count_calls(monkeypatch)
+        monkeypatch.setattr(tcap, "decode_fused",
+                            lambda c, dd, dev: c.eval_decode_fused and dd == torch.bfloat16)
+        model.caption.cfg = ModelConfig(**dataclasses.asdict(
+            dataclasses.replace(cfg, eval_decode_fused=True)))
+        fused = model.caption(ep)
+    steps = cfg.max_des_len + 1
+    assert calls == {"generator_argmax": steps,
+                     "ffn": cfg.num_layers * (steps + int(early_guide))}
+    assert torch.equal(fused, unfused)
+
+
+def test_fused_flag_tokens_match_jax_or_tie():
+    """eval_decode_fused=True on both sides: JAX keeps its composites off the
+    TPU and the port keeps its unfused path on the CPU; the tokens agree as
+    the unfused bf16 decodes do (tests/test_torch_models.py)."""
+    cfg = _tiny(eval_decode_fused=True)
+    got, want, model, ep = _decode_both(cfg, np.random.RandomState(0))
+    assert_tokens_match_or_tie(got, want, model, ep)
+
+
+def test_gate_engages_only_for_bf16_on_cuda():
+    on = ModelConfig(eval_decode_fused=True)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert tcap.decode_fused(on, torch.bfloat16, cuda)
+    assert not tcap.decode_fused(on, torch.float32, cuda)
+    assert not tcap.decode_fused(on, torch.bfloat16, cpu)
+    assert not tcap.decode_fused(ModelConfig(), torch.bfloat16, cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_flag_on_cpu_launches_nothing(monkeypatch, dtype):
+    cfg = dataclasses.replace(_tiny(eval_decode_fused=True), eval_decode_dtype=dtype)
+    model = port_model(cfg, jax_model(cfg, 2)[2])
+    ep = {k: torch.from_numpy(v) for k, v in _proposals(cfg, np.random.RandomState(3)).items()}
+    before = (dops.generator_argmax.launches, dops.ffn.launches)
+    calls = _count_calls(monkeypatch)
+    with torch.no_grad():
+        model.caption(ep)
+    assert calls == {"ffn": 0, "generator_argmax": 0}
+    assert (dops.generator_argmax.launches, dops.ffn.launches) == before
