@@ -46,8 +46,14 @@ KERNELS = {"fps": ops.furthest_point_sample, "ball_query": ops.ball_query,
            "generator_argmax": ops.generator_argmax, "ffn": ops.ffn}
 # greedy decode rows B * K = 2048 at d 128: vocab 4528, d_ff 2048
 GEN_SHAPES = [(2048, 4528, True), (2000, 4500, False)]   # (R, vocab, on the main path)
-FFN_SHAPES = [(2048, 2048, True), (2000, 2048, False)]   # (R, d_ff, on the main path)
+# (R, d, d_ff, on the main path): the decode's shape, a ragged R, the widest d
+# with a d_ff that is no multiple of the kernel's 64-column chunk, a narrow d
+FFN_SHAPES = [(2048, 128, 2048, True), (2000, 128, 2048, False),
+              (2000, 256, 1040, False), (2048, 64, 2048, False)]
 D_MODEL = 128
+# the kernels whose device time the forward's profile reports, by kernel name
+PROFILED = {"fps": "fps_kernel", "ball_query": "ball_query_kernel",
+            "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel"}
 
 
 def log(phase, **kw):
@@ -60,12 +66,16 @@ def bound(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
 
 
 def cuda_ms(fn, reps, runs=5, warmup=2):
-    """Median over ``runs`` of the per-call time of ``reps`` back-to-back calls."""
+    """Median over ``runs`` of the per-call device time of ``reps``
+    back-to-back calls. The device first sleeps about 5 ms, so that the host
+    has queued the calls before the first one starts and the window holds
+    device time, not the wrappers' host time."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)
         s.record()
         for _ in range(reps):
             fn()
@@ -243,39 +253,122 @@ def phase_decode_kernels():
         log("kernels", kernel="generator_argmax", **row)
         results["generator_argmax"].append(row)
     gen_exact_case(rng)
-    # output tolerance rtol = atol = 2^-7 (tests/test_decode_pallas.py
-    # allows 2e-2): the two sides sum the same exact bf16 products in f32 in
-    # other orders, so an output may round to its neighbouring bf16 value
-    # (2^-8 of |y|), and so may a hidden value, which moves y by
-    # 2^-8 |h| |w2|, below 2^-8 at these init ranges
-    for r, f, main in FFN_SHAPES:
-        x = torch.from_numpy(rng.randn(r, d).astype(np.float32)).to(DEV).bfloat16()
-        lim = np.sqrt(6 / (d + f))
-        w1, b1 = bf16_uniform(rng, (f, d), lim), bf16_uniform(rng, (f,), 1 / np.sqrt(d))
-        w2, b2 = bf16_uniform(rng, (d, f), lim), bf16_uniform(rng, (d,), 1 / np.sqrt(f))
-        got = ops.ffn(x, w1, b1, w2, b2).float()
-        want = ops.ffn_plain(x, w1, b1, w2, b2).float()
+    results["ffn"] = ffn_rows(rng)
+    return results
+
+
+def ffn_weights(rng, d, f):
+    """bf16 (w1, b1, w2, b2) at the xavier / torch-default init ranges."""
+    lim = np.sqrt(6 / (d + f))
+    return (bf16_uniform(rng, (f, d), lim), bf16_uniform(rng, (f,), 1 / np.sqrt(d)),
+            bf16_uniform(rng, (d, f), lim), bf16_uniform(rng, (d,), 1 / np.sqrt(f)))
+
+
+def ffn_launch(packed, cluster):
+    return ops.ffn_launch_info(torch.cuda.current_device(), packed.d, packed.chunks, cluster)
+
+
+def ffn_auto_cluster(r, packed):
+    return ops.ffn_default_cluster(torch.cuda.current_device(), r, packed.d, packed.chunks)
+
+
+def ffn_check(x, packed, cluster=None):
+    """The kernel against the plain version within rtol = atol = 2^-7
+    (tests/test_decode_pallas.py allows 2e-2): the two sides sum the same
+    exact bf16 products in f32 in other orders, so an output may round to
+    its neighbouring bf16 value (2^-8 of |y|), and so may a hidden value,
+    which moves y by 2^-8 |h| |w2|, below 2^-8 at these init ranges. Two
+    calls on the same inputs must give the same bits."""
+    got = ops.ffn(x, packed, cluster=cluster)
+    again = ops.ffn(x, packed, cluster=cluster)
+    want = ops.ffn_plain(x, packed.w1, packed.b1, packed.w2, packed.b2)
+    torch.cuda.synchronize()
+    shape = [x.shape[0], packed.d, packed.d_ff]
+    if not torch.equal(got, again):
+        raise AssertionError(f"ffn {shape} cluster {cluster}: two calls differ")
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rtol = atol = 2.0 ** -7
+    if not bool(torch.isfinite(got).all()) or bool((err > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"ffn {shape} cluster {cluster}: kernel != plain beyond rtol = "
+                             f"atol = 2^-7 (max abs err {float(err.max())})")
+    big = want.abs() > atol
+    return dict(max_abs_err=float(err.max()),
+                max_rel_err=float((err[big] / want.abs()[big]).max()),
+                share_not_bit_equal=float((got != want).float().mean()),
+                max_abs_out=float(want.abs().max()), rtol=rtol, atol=atol,
+                two_calls_bit_equal=True)
+
+
+def ffn_exact_case(rng):
+    """Exact arithmetic: x integers in [-2, 2], weights in {-1, 0, 1}, biases
+    integers in [-4, 4]. Every f32 sum, in the hidden and in the output, is
+    an integer below 2^24 in magnitude, exact in any order, so both bf16
+    roundings see the same values on both sides and the kernel must equal
+    the plain version bit for bit: a difference is a layout fault, not
+    rounding. At the main-path shape on clusters of 1-4 blocks (the default
+    among them), and at the widest d with a padded d_ff."""
+    rows = []
+    for r, d, f, cluster in [(2048, 128, 2048, 1), (2048, 128, 2048, 2), (2048, 128, 2048, None),
+                             (2048, 128, 2048, 4), (2000, 256, 1040, None)]:
+        def ints(lo, hi, shape):
+            return torch.from_numpy(rng.randint(lo, hi + 1, shape).astype(np.float32)).to(
+                DEV).bfloat16()
+        x = ints(-2, 2, (r, d))
+        w1, b1, w2, b2 = ints(-1, 1, (f, d)), ints(-4, 4, (f,)), ints(-1, 1, (d, f)), ints(-4, 4, (d,))
+        packed = ops.pack_ffn(w1, b1, w2, b2)
+        got = ops.ffn(x, packed, cluster=cluster)
+        want = ops.ffn_plain(x, w1, b1, w2, b2)
+        hid = torch.relu(x.float() @ w1.float().t() + b1.float())
         torch.cuda.synchronize()
-        err = (got - want).abs()
-        rtol = atol = 2.0 ** -7
-        if not bool(torch.isfinite(got).all()) or bool((err > atol + rtol * want.abs()).any()):
-            raise AssertionError(f"ffn R={r}: kernel != plain beyond rtol = atol = 2^-7 "
-                                 f"(max abs err {float(err.max())})")
-        big = want.abs() > atol
-        row = dict(shape=[r, d, f], main_path=main, max_abs_err=float(err.max()),
-                   max_rel_err=float((err[big] / want.abs()[big]).max()),
-                   share_not_bit_equal=float((got != want).float().mean()),
-                   max_abs_out=float(want.abs().max()), rtol=rtol, atol=atol,
-                   ms=cuda_ms(lambda: ops.ffn(x, w1, b1, w2, b2), reps=20),
-                   plain_ms=cuda_ms(lambda: ops.ffn_plain(x, w1, b1, w2, b2), reps=20),
-                   library_ms=cuda_ms(lambda: torch.addmm(
-                       b2, torch.relu(torch.addmm(b1, x, w1.t())), w2.t()), reps=20),
-                   library="composite: addmm -> relu -> addmm in bf16")
+        diff = torch.nonzero(got != want)
+        row = {"shape": [r, d, f], "cluster": cluster or ffn_auto_cluster(r, packed),
+               "bit_equal": bool(torch.equal(got, want)), "elements_differ": int(diff.shape[0]),
+               "hidden_zero_share": float((hid == 0).float().mean()),
+               "max_abs_hidden": float(hid.max()), "max_abs_out": float(want.float().abs().max())}
+        if diff.shape[0]:
+            i, j = (int(v) for v in diff[0])
+            row["first_diff"] = {"row": i, "col": j, "got": float(got[i, j]),
+                                 "want": float(want[i, j])}
+        log("kernels", kernel="ffn", case="exact arithmetic", **row)
+        rows.append(row)
+    if not all(row["bit_equal"] for row in rows):
+        raise AssertionError(f"ffn exact case: kernel != plain: {rows}")
+
+
+def ffn_rows(rng):
+    """The FFN kernel at every FFN_SHAPES shape and the exact case; timed
+    beside the plain version and cuBLAS's bf16 composite. At the main-path
+    shape also at the other cluster sizes 1-4."""
+    ptxas = _build.ptxas_info()
+    ffn_exact_case(rng)
+    rows = []
+    for r, d, f, main in FFN_SHAPES:
+        x = torch.from_numpy(rng.randn(r, d).astype(np.float32)).to(DEV).bfloat16()
+        w1, b1, w2, b2 = ffn_weights(rng, d, f)
+        packed = ops.pack_ffn(w1, b1, w2, b2)
+        cluster = ffn_auto_cluster(r, packed)
+        nt = -(-d // 64)
+        row = ffn_check(x, packed)
+        row.update(
+            shape=[r, d, f], main_path=main, cluster=cluster, **ffn_launch(packed, cluster),
+            ptxas=next(v for k, v in ptxas.items() if f"ffn_kernelILi{nt}E" in k),
+            ms=cuda_ms(lambda: ops.ffn(x, packed), reps=20),
+            plain_ms=cuda_ms(lambda: ops.ffn_plain(x, w1, b1, w2, b2), reps=20),
+            library_ms=cuda_ms(lambda: torch.addmm(
+                b2, torch.relu(torch.addmm(b1, x, w1.t())), w2.t()), reps=20),
+            library="composite: addmm -> relu -> addmm in bf16")
+        if main:   # the d_ff split against the other cluster sizes
+            for s in range(1, 5):
+                if s != cluster:
+                    row[f"cluster_{s}"] = dict(
+                        ffn_check(x, packed, cluster=s), **ffn_launch(packed, s),
+                        ms=cuda_ms(lambda: ops.ffn(x, packed, cluster=s), reps=20))
         row["bound_ms"], row["bound_by"] = bound(
             4.0 * r * d * f, 2 * (2 * r * d + 2 * f * d + f + d), PEAK_BF16_FLOPS)
         log("kernels", kernel="ffn", **row)
-        results["ffn"].append(row)
-    return results
+        rows.append(row)
+    return rows
 
 
 def check_outputs(cfg, out):
@@ -417,8 +510,11 @@ def phase_eval_forward():
         log("profile", path=name, **prof)
         summary[name] = {"scenes_per_s": B / med, "decode_ms": split_ms["decode"],
                          "device_busy_ms": prof.get("device_busy_ms"),
-                         "device_spans": prof.get("device_spans")}
-    log("fused_vs_unfused", tokens=tokens, **summary)
+                         "device_spans": prof.get("device_spans"),
+                         "ffn_kernel_ms": prof.get("kernel_device_ms", {}).get("ffn")}
+    busy = [summary[n]["device_busy_ms"] for n in ("unfused", "fused")]
+    log("fused_vs_unfused", tokens=tokens, **summary,
+        fused_minus_unfused_busy_ms=None if None in busy else busy[1] - busy[0])
     return {"fps": launches["unfused"]["fps"], "ball_query": launches["unfused"]["ball_query"],
             "generator_argmax": launches["fused"]["generator_argmax"],
             "ffn": launches["fused"]["ffn"]}
@@ -443,8 +539,10 @@ def device_profile(fn):
             end = e
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    ours = {k: sum(t for name, t in by_name.items() if pat in name) / 1e3
+            for k, pat in PROFILED.items()}
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "device_spans": len(spans),
+            "device_spans": len(spans), "kernel_device_ms": ours,
             "top_device_ms": [[name[:90], t / 1e3] for name, t in top]}
 
 
@@ -489,8 +587,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.library()
-    log("build", seconds=time.perf_counter() - t0)
-    print(_build.ptxas_report(), flush=True)
+    log("build", seconds=time.perf_counter() - t0, ptxas=_build.ptxas_info())
 
     per_shape = phase_kernels()
     per_shape.update(phase_decode_kernels())
@@ -523,6 +620,9 @@ def main() -> int:
             "library_ms": None if None in lib else sum(lib),
             "per_shape": rows,
         })
+        if name == "ffn":   # the split and the build of the main-path launch
+            kernels[-1].update({k: main[0][k] for k in (
+                "cluster", "stages", "dynamic_smem", "max_active_clusters", "ptxas")})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

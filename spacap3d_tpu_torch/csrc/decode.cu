@@ -1,21 +1,45 @@
 // Fused greedy-decode kernels on Hopper (sm_90a): the generator's argmax and
 // the position-wise FFN, each one launch with its intermediate kept on chip.
 //
-// Both multiply bf16 operands on the tensor cores through nvcuda::wmma
-// (16x16x16 fragments, f32 accumulators), read the weights in the port's
-// (out, in) layout as column-major B fragments straight from global memory
-// (L2 serves every block after the first), and stage the activation tile in
-// shared memory. No library GEMM is called.
+// gen_argmax_kernel multiplies on the tensor cores through nvcuda::wmma
+// (16x16x16 fragments, f32 accumulators), reading the weights in the port's
+// (out, in) layout straight from global memory. ffn_kernel issues wgmma
+// (m64n64k16) on weights that ops/decode.py::pack_ffn laid out once per decode
+// as the shared-memory image the wgmma descriptors read, brought in by bulk
+// asynchronous copies. No library GEMM is called.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <math_constants.h>
+#include <stdint.h>
+
+#ifdef SPACAP_FFN_TIMELINE
+// Diagnostic build only (spacap3d_tpu_torch/tools/ffn_probe.py): thread 0 of
+// each ffn block records %globaltimer (ns) at the kernel's phase boundaries.
+constexpr int kTimelineBlocks = 8192, kTimelineMarks = 8;
+__device__ unsigned long long g_ffn_timeline[kTimelineBlocks * kTimelineMarks];
+#define FFN_MARK(i)                                                                    \
+  do {                                                                                 \
+    const int blk = blockIdx.y * gridDim.x + blockIdx.x;                               \
+    if (threadIdx.x == 0 && blk < kTimelineBlocks) {                                   \
+      unsigned long long t;                                                            \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                            \
+      g_ffn_timeline[blk * kTimelineMarks + (i)] = t;                                  \
+    }                                                                                  \
+  } while (0)
+#else
+#define FFN_MARK(i) \
+  do {              \
+  } while (0)
+#endif
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
+namespace cg = cooperative_groups;
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
@@ -27,8 +51,7 @@ constexpr int kRows = 32;               // rows of x per block: two 16-row fragm
 constexpr int kTile = kWarps * 16;      // columns per tile: one 16-column fragment a warp
 constexpr int kPad = 8;                 // bf16 row padding of the shared tiles
 constexpr int kTileLd = kTile + 8;      // f32 staging row: 136 = 8 mod 32 banks
-constexpr int kMaxD = 256;              // d <= 256: two output fragments a warp in ffn
-constexpr int kMaxDFrags = kMaxD / 16 / kWarps;
+constexpr int kMaxD = 256;
 
 // Rows [row0, row0 + kRows) of x (r, d) into shared memory (row stride d + kPad),
 // zero past row r. d % 16 == 0 and x 16-byte aligned, so rows move as uint4.
@@ -129,155 +152,570 @@ gen_argmax_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   if (part == 0 && row0 + srow < r) out[row0 + srow] = best_idx;
 }
 
-// Replaces spacap3d_tpu/ops/decode_pallas.py::ffn (_ffn_kernel):
-// out = bf16(bf16(relu(x @ w1^T + b1)) @ w2^T + b2), f32 accumulation, the
-// hidden rounded to bf16 (round to nearest even) before the second product,
-// the output rounded once; the (r, d_ff) hidden never reaches device memory.
-//
-// Bound on the H100: operations. 4 r d d_ff flops (2.15 GFLOP at r 2048,
-// d 128, d_ff 2048) are 2.2 us at 989 TFLOP/s; x, the weights and the output
-// are 2.1 MB, 0.6 us at 3.35 TB/s. Design: one block per 32 rows walks d_ff in
-// 128-wide chunks. For each chunk the 8 warps compute the hidden chunk (one
-// 16-column fragment each) from the shared x tile, add b1, apply relu and round
-// it into a shared bf16 tile; then each warp accumulates its output fragments
-// (d / 16 spread over the warps) from that tile, in registers across chunks.
-// At the end the f32 output goes through shared memory for b2 and the store.
-// As in gen_argmax_kernel, every block reads all weights from L2.
-__global__ void __launch_bounds__(kThreads)
-ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-           const bf16* __restrict__ w2, const bf16* __restrict__ b2, int r, int d, int f,
-           bf16* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);                       // kRows x (d + kPad)
-  bf16* hs = xs + kRows * (d + kPad);                             // kRows x (kTile + kPad)
-  float* st = reinterpret_cast<float*>(hs + kRows * (kTile + kPad));  // f32 staging
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * kRows;
-  load_x_tile(x, r, d, row0, xs);
-
-  FragC acc_o[2][kMaxDFrags];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < kMaxDFrags; ++j) wmma::fill_fragment(acc_o[i][j], 0.0f);
-  __syncthreads();
-
-  for (int f0 = 0; f0 < f; f0 += kTile) {
-    const int chunk = min(kTile, f - f0);   // a multiple of 16
-    const int hb = warp * 16;               // this warp's hidden columns in the chunk
-    if (hb < chunk) {
-      FragC acc[2];
-      wmma::fill_fragment(acc[0], 0.0f);
-      wmma::fill_fragment(acc[1], 0.0f);
-      const bf16* wp = w1 + static_cast<long long>(f0 + hb) * d;
-#pragma unroll 4
-      for (int k = 0; k < d; k += 16) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, wp + k, d);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          FragA fa;
-          wmma::load_matrix_sync(fa, xs + i * 16 * (d + kPad) + k, d + kPad);
-          wmma::mma_sync(acc[i], fa, fb, acc[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::store_matrix_sync(st + i * 16 * kTileLd + hb, acc[i], kTileLd, wmma::mem_row_major);
-      __syncwarp();
-      // this warp's 32 x 16 slice: + b1, relu, round to bf16
-      for (int e = lane; e < kRows * 16; e += 32) {
-        const int rr = e >> 4, cc = hb + (e & 15);
-        const float v = st[rr * kTileLd + cc] + __bfloat162float(b1[f0 + cc]);
-        hs[rr * (kTile + kPad) + cc] = __float2bfloat16_rn(fmaxf(v, 0.0f));
-      }
-    }
-    __syncthreads();
-    for (int k = 0; k < chunk; k += 16) {
-#pragma unroll
-      for (int j = 0; j < kMaxDFrags; ++j) {
-        const int oc = (warp + j * kWarps) * 16;   // output columns of this fragment
-        if (oc < d) {
-          FragB fb;
-          wmma::load_matrix_sync(fb, w2 + static_cast<long long>(oc) * f + f0 + k, f);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            FragA fa;
-            wmma::load_matrix_sync(fa, hs + i * 16 * (kTile + kPad) + k, kTile + kPad);
-            wmma::mma_sync(acc_o[i][j], fa, fb, acc_o[i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();   // hs and st are rewritten by the next chunk
-  }
-
-  const int ld_o = d + kPad;
-#pragma unroll
-  for (int j = 0; j < kMaxDFrags; ++j) {
-    const int oc = (warp + j * kWarps) * 16;
-    if (oc < d) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::store_matrix_sync(st + i * 16 * ld_o + oc, acc_o[i][j], ld_o, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kRows * d; e += kThreads) {
-    const int rr = e / d, cc = e % d;
-    if (row0 + rr < r)
-      out[static_cast<long long>(row0 + rr) * d + cc] =
-          __float2bfloat16_rn(st[rr * ld_o + cc] + __bfloat162float(b2[cc]));
-  }
-}
-
 int shared_bytes_gen(int d) {
   return kRows * (d + kPad) * static_cast<int>(sizeof(bf16)) + kRows * kTileLd * 4;
 }
 
-int shared_bytes_ffn(int d) {
-  const int staging = kRows * (d + kPad > kTileLd ? d + kPad : kTileLd) * 4;
-  return kRows * (d + kPad) * static_cast<int>(sizeof(bf16)) +
-         kRows * (kTile + kPad) * static_cast<int>(sizeof(bf16)) + staging;
-}
-
-template <typename Kernel>
-cudaError_t set_shared(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 bool bad_shape(int r, int d) { return r <= 0 || d <= 0 || d % 16 != 0 || d > kMaxD; }
+
+// ------------------------------------------------------------------- ffn
+//
+// Shared-memory images. A wgmma operand is read K-major without swizzle
+// (descriptor layout type 0): the matrix is cut into core matrices of 8 rows
+// by 8 bf16 (16 bytes), each stored as 128 contiguous bytes (row i of the core
+// at byte 16 i); core (i, j), rows 8i.. and K columns 8j.., sits at byte
+// 128 (i * K / 8 + j). So the leading byte offset (the next core along K) is
+// 128 and the stride byte offset (the next 8 rows) is 16 K; one k16 step
+// advances the start address by 256 bytes. ops/decode.py::pack_ffn writes W1
+// and W2 in this layout, chunk by chunk, and the kernel writes the x tile in it.
+namespace ffn {
+
+constexpr int kThreads = 128;      // one warpgroup: it issues the copies and the wgmma
+constexpr int kRows = 64;          // rows of x a block: the wgmma M
+constexpr int kChunk = 64;         // d_ff columns a chunk: the first product's wgmma N
+constexpr int kMaxStages = 4;
+constexpr int kMaxCluster = 8;     // the portable cluster size
+constexpr int kSmemLimit = 232448; // 227 KB of dynamic shared memory a block
+constexpr int kHead = 128;         // the ring's mbarriers; the tiles start at byte 128
+
+__host__ __device__ constexpr int x_bytes(int dp) { return kRows * dp * 2; }
+// one chunk of the packed image: W1 rows (kChunk x dp), W2 columns (dp x kChunk),
+// then b1 (kChunk f32)
+__host__ __device__ constexpr int w_bytes(int dp) { return kChunk * dp * 2; }
+__host__ __device__ constexpr int stage_bytes(int dp) { return 2 * w_bytes(dp) + kChunk * 4; }
+__host__ __device__ constexpr int part_ld(int dp) { return dp + 8; }   // f32 row: 8 banks apart row to row
+// rows of the 64-row tile that each of `cluster` blocks reduces, at most
+__host__ __device__ constexpr int share_rows(int cluster) { return (kRows + cluster - 1) / cluster; }
+// the slots a block receives the cluster's partials of its rows in
+__host__ __device__ constexpr int slot_bytes(int dp, int cluster) {
+  return cluster * share_rows(cluster) * part_ld(dp) * 4;
+}
+
+// The launch's shared memory: mbarriers, the x tile, the ring, and the slots
+// of the reduction. The slots lie apart from the ring where that leaves room
+// for 3 stages (or for all the chunks a block takes), so that a block may
+// receive partials while its peers still multiply; else they reuse the ring
+// after a cluster barrier. As many stages as fit, up to 4, and no more than
+// the chunks a block takes: so at least 2 wherever it takes 2 or more, as the
+// pipeline needs.
+int smem_bytes(int nt, int chunks, int cluster, int* stages, int* apart) {
+  const int dp = 64 * nt, per_rank = (chunks + cluster - 1) / cluster;
+  const int fixed = kHead + x_bytes(dp), slots = slot_bytes(dp, cluster);
+  const int cap = per_rank < kMaxStages ? per_rank : kMaxStages;
+  int s = (kSmemLimit - fixed - slots) / stage_bytes(dp);
+  s = s < cap ? s : cap;
+  if (s >= (cap < 3 ? cap : 3)) {
+    *stages = s;
+    *apart = 1;
+    return fixed + s * stage_bytes(dp) + slots;
+  }
+  s = (kSmemLimit - fixed) / stage_bytes(dp);
+  s = s < cap ? s : cap;
+  s = s > 1 ? s : 1;
+  *stages = s;
+  *apart = 0;
+  const int ring = s * stage_bytes(dp);
+  return fixed + (ring > slots ? ring : slots);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor, no swizzle: start address, leading byte
+// offset and stride byte offset, each in 16-byte units; base offset 0.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits for the completion of the barrier's phase of parity `parity`. A
+// phase that never completes traps after about 2 s (2^32 cycles) instead of
+// hanging the device.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 32)) __trap();
+  }
+}
+
+// One contiguous global -> shared copy of `bytes`, completed on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The address of shared::cta address `addr` in cluster block `rank`'s
+// shared memory, and an 8-byte store there.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float lo, float hi) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(lo), "f"(hi)
+               : "memory");
+}
+// 16 bytes global -> shared; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Waits until at most N committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving the definitions and uses of accumulator
+// registers across the asm that brackets an asynchronous wgmma: placed before
+// wgmma.fence and after wgmma.wait_group, it keeps every non-wgmma write to
+// them (such as zeroing) out of the span where a wgmma owns them, which ptxas
+// would otherwise answer by serializing the wgmma (C7513 / C7515).
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define SPACAP_ACC32(d)                                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),             \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),     \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define SPACAP_D32                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64 f32) = A (64 x 16) B (16 x 64) + (scale_d ? d : 0), A and B bf16
+// in shared memory (K-major descriptors). Thread t of the warpgroup holds
+// d[4j + q] at row 16 (t / 32) + (t % 32) / 4 + 8 (q / 2), column
+// 8 j + 2 (t % 4) + q % 2.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SPACAP_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SPACAP_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A (64 x 16, bf16 pairs in registers) B (16 x 64, shared memory). Thread
+// t holds a[0] = A[g][2c..2c+1], a[1] = A[g+8][2c..], a[2] = A[g][8+2c..],
+// a[3] = A[g+8][8+2c..] with g = 16 (t / 32) + (t % 32) / 4 and c = t % 4:
+// the accumulator layout above, two 8-column blocks a k16 step.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SPACAP_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : SPACAP_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t relu_pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(lo, 0.0f), fmaxf(hi, 0.0f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Issues (one wgmma group) hidden chunk (64 x 64) = x tile (64 x dp) . W1
+// chunk (64 x dp)^T, both K-major images in shared memory.
+template <int NT>
+__device__ __forceinline__ void issue_hidden(float (&h)[32], uint32_t xa, uint32_t sa) {
+  constexpr int kDp = 64 * NT;
+  fence_regs(h);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < kDp / 16; ++k)
+    wgmma_ss(h, desc(xa + 256 * k, 128, 16 * kDp), desc(sa + 256 * k, 128, 16 * kDp), k);
+  wgmma_commit();
+}
+
+// + b1 (f32, in the stage), relu, bf16: the accumulator's 8-column block j
+// becomes half of the A fragment of k16 step j / 2.
+__device__ __forceinline__ void hidden_to_a(const float (&h)[32], const float* b1, int quad,
+                                            uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(b1 + 8 * j + 2 * quad);
+    a[j >> 1][(j & 1) * 2] = relu_pack(h[4 * j] + b.x, h[4 * j + 1] + b.y);
+    a[j >> 1][(j & 1) * 2 + 1] = relu_pack(h[4 * j + 2] + b.x, h[4 * j + 3] + b.y);
+  }
+}
+
+// Issues (one wgmma group) out (64 x dp) += hidden chunk (64 x 64, A in
+// registers) . W2 chunk (dp x 64)^T, the W2 image at wa.
+template <int NT>
+__device__ __forceinline__ void issue_out(float (&acc)[NT][32], const uint32_t (&a)[4][4],
+                                          uint32_t wa) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) fence_regs(acc[t]);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      wgmma_rs(acc[t], a[k], desc(wa + t * 64 * kChunk * 2 + 256 * k, 128, 16 * kChunk));
+  wgmma_commit();
+}
+
+// Replaces spacap3d_tpu/ops/decode_pallas.py::ffn (_ffn_kernel, :127):
+// out = bf16(bf16(relu(x @ w1^T + b1)) @ w2^T + b2), f32 accumulation, b1
+// added in f32 after the product, the hidden rounded to bf16 (round to nearest
+// even) before the second product, the output rounded once; the (r, d_ff)
+// hidden never reaches device memory.
+//
+// Bound on the H100: operations. 4 r d d_ff flops (2.15 GFLOP at r 2048,
+// d 128, d_ff 2048) are 2.17 us at 989 TFLOP/s bf16; x, the weights and the
+// output are 2.1 MB, 0.6 us at 3.35 TB/s. What holds it back is latency: each
+// chunk is a chain of dependent wgmma and a wait, and each launch pays for its
+// first copies and its cluster barrier. (Every 64-row tile reads all the
+// weights from L2, 32 MB at r 2048; that costs about 6% on the card.)
+//
+// Design. A block is one warpgroup and takes 64 rows (the wgmma M) and one
+// slice of d_ff; the S blocks of a thread-block cluster split d_ff (S = 3 at
+// r 2048: 96 blocks, the most that the card holds in one wave).
+// - The x tile (64 x d_pad) is loaded once with cp.async, zero past r and d,
+//   into the core-matrix layout.
+// - Weights: pack_ffn laid W1 and W2 out once per decode, chunk by chunk of 64
+//   d_ff columns, as this kernel's shared-memory image (with b1 in f32), so a
+//   chunk is one contiguous cp.async.bulk copy into a ring of 1-4 stages,
+//   completed on an mbarrier; the copies of the next stages are in flight
+//   while a chunk is multiplied. No tensor map is encoded per call.
+// - Hidden chunk: wgmma m64n64k16 over d_pad / 16 k steps (A = the x tile,
+//   B = the W1 chunk, both in shared memory). + b1, relu and bf16 rounding run
+//   on the accumulator registers, whose layout is the A-operand layout of the
+//   next product: the hidden never leaves registers.
+// - Output: wgmma m64n64k16 with A in registers (4 k steps) for each 64-column
+//   tile of d_pad, accumulated in registers across the block's chunks.
+// - Pipeline: the wgmma groups go in the order hidden(c + 1), out(c), so the
+//   tensor cores run out(c) while the warps turn hidden(c + 1) into A
+//   fragments (two buffers in turn); a stage is refilled once out(c) is done,
+//   behind one block barrier a chunk.
+// - Reduction: block s of the cluster owns rows [64 s / S, 64 (s + 1) / S) of
+//   the tile. Each block stores its f32 partial rows from registers into
+//   their owner's slots (slot = its rank; st.shared::cluster to the other
+//   blocks); after one cluster barrier each owner sums the S partials of its
+//   rows in rank order from its own shared memory, adds b2, rounds once and
+//   stores the rows below r. No atomics: the same bits on every run. The slots
+//   lie apart from the ring where they fit (d_pad <= 192), so a block pushes
+//   while its peers still multiply; else a cluster barrier first waits until
+//   every ring of the cluster is free.
+template <int NT>  // 64-column output tiles: d_pad = 64 NT
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ image,
+           const float* __restrict__ b2, int r, int d, int chunks, int stages, int apart,
+           bf16* __restrict__ out) {
+  constexpr int kDp = 64 * NT;
+  constexpr int kStage = stage_bytes(kDp);
+  constexpr int kW = w_bytes(kDp);
+  constexpr int kLd = part_ld(kDp);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t bars = smem_addr(smem);   // mbarrier s at bars + 8 s
+  unsigned char* xs = smem + kHead;
+  unsigned char* ring = xs + x_bytes(kDp);
+  float* slots = reinterpret_cast<float*>(ring + (apart ? stages * kStage : 0));
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = blockIdx.y * kRows;
+  const int c0 = rank * chunks / n_ranks;
+  const int n = (rank + 1) * chunks / n_ranks - c0;
+  const int tid = threadIdx.x;
+  // the four output columns this thread stores; b2 read early, off the tail
+  const int v4 = d / 4, col = (tid % v4) * 4;
+  const float4 bb = *reinterpret_cast<const float4*>(b2 + col);
+
+  FFN_MARK(0);   // start
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // this block has started: its peers may store into it once they wait on this
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  __syncthreads();
+  FFN_MARK(1);   // mbarriers ready
+  if (tid == 0) {
+    for (int c = 0; c < n && c < stages; ++c) {
+      mbar_expect_tx(bars + 8 * c, kStage);
+      bulk_copy(smem_addr(ring + c * kStage), image + static_cast<long long>(c0 + c) * kStage,
+                kStage, bars + 8 * c);
+    }
+  }
+  {  // the x tile: 16-byte vector (m, kc) to core (m / 8, kc), row m % 8
+    constexpr int kVecs = kDp / 8;
+    const uint32_t xa = smem_addr(xs);
+    for (int v = tid; v < kRows * kVecs; v += kThreads) {
+      const int m = v / kVecs, kc = v % kVecs;
+      const bool in = row0 + m < r && kc * 8 < d;
+      const bf16* src = in ? x + static_cast<long long>(row0 + m) * d + kc * 8 : x;
+      cp_async16(xa + ((m >> 3) * kVecs + kc) * 128 + (m & 7) * 16, src, in ? 16 : 0);
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+    // generic-proxy writes, read next by wgmma through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+  FFN_MARK(2);   // x tile loaded
+
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
+  const uint32_t xa = smem_addr(xs), ring_a = smem_addr(ring);
+  float acc[NT][32];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[t][i] = 0.0f;
+  float h[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) h[i] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) fence_regs(acc[t]);   // zeroed before any wgmma is in flight
+  fence_regs(h);
+  uint32_t a0[4][4], a1[4][4];   // A fragments of two chunks in turn
+
+  // Chunk c, with the wgmma groups committed in the order hidden(c + 1),
+  // out(c): hidden(c) is complete at the top of step c while out(c - 1) may
+  // still run under the epilogue, which writes the other A buffer.
+  auto step = [&](int c, uint32_t(&a)[4][4]) {
+    const int st = c % stages;
+    wgmma_wait<1>();
+    fence_regs(h);
+    hidden_to_a(h, reinterpret_cast<const float*>(ring + st * kStage + 2 * kW), quad, a);
+    wgmma_wait<0>();   // out(c - 1) is done: chunk c - 1's stage is free
+    __syncthreads();
+    if (tid == 0 && c >= 1 && c - 1 + stages < n) {
+      const int free = (c - 1) % stages;
+      mbar_expect_tx(bars + 8 * free, kStage);
+      bulk_copy(ring_a + free * kStage, image + static_cast<long long>(c0 + c - 1 + stages) * kStage,
+                kStage, bars + 8 * free);
+    }
+    if (c + 1 < n) {
+      const int nx = (c + 1) % stages;
+      mbar_wait(bars + 8 * nx, ((c + 1) / stages) & 1);
+      issue_hidden<NT>(h, xa, ring_a + nx * kStage);
+    }
+    issue_out<NT>(acc, a, ring_a + st * kStage + kW);
+  };
+
+  if (n > 0) {
+    mbar_wait(bars, 0);
+    FFN_MARK(3);   // first chunk landed
+    issue_hidden<NT>(h, xa, ring_a);
+    wgmma_commit();   // an empty group in out(-1)'s place
+  }
+  for (int c = 0; c < n; c += 2) {
+    step(c, a0);
+    if (c + 1 < n) step(c + 1, a1);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int t = 0; t < NT; ++t) fence_regs(acc[t]);
+
+  FFN_MARK(4);   // chunks done
+
+  // each partial row into its owner's slot `rank`
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");   // every block has started
+  if (!apart) cluster.sync();   // the slots reuse the rings: every ring of the cluster is free
+  const int cap = share_rows(n_ranks);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = 16 * warp + (lane >> 2) + 8 * half;
+    int owner = 0;
+    while ((owner + 1) * kRows / n_ranks <= m) ++owner;
+    float* row = slots + (rank * cap + m - owner * kRows / n_ranks) * kLd;
+    if (owner == rank) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(row + 64 * t + 8 * j + 2 * quad) =
+              make_float2(acc[t][4 * j + 2 * half], acc[t][4 * j + 2 * half + 1]);
+    } else {
+      const uint32_t dst = map_rank(smem_addr(row), owner);
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          st_cluster(dst + 4 * (64 * t + 8 * j + 2 * quad), acc[t][4 * j + 2 * half],
+                     acc[t][4 * j + 2 * half + 1]);
+    }
+  }
+  FFN_MARK(5);   // partials stored
+  cluster.sync();   // every partial has landed; from here on only local memory
+  FFN_MARK(6);   // cluster barrier passed
+
+  // rows [ra, ra + rows) of the tile: the S slots summed in rank order
+  const int ra = rank * kRows / n_ranks, rows = (rank + 1) * kRows / n_ranks - ra;
+  const int row_step = kThreads / v4;
+  if (tid >= row_step * v4) return;
+  for (int m = tid / v4; m < rows; m += row_step) {
+    const float* p = slots + m * kLd + col;
+    float4 sum = *reinterpret_cast<const float4*>(p);
+    for (int q = 1; q < n_ranks; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(p + q * cap * kLd);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    if (row0 + ra + m < r) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(sum.x + bb.x, sum.y + bb.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(sum.z + bb.z, sum.w + bb.w);
+      *reinterpret_cast<uint2*>(out + static_cast<long long>(row0 + ra + m) * d + col) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+    }
+  }
+  FFN_MARK(7);   // rows stored
+}
+
+cudaLaunchConfig_t launch_config(int r, int bytes, int cluster, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(cluster), static_cast<unsigned>((r + kRows - 1) / kRows), 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The shared-memory opt-in, once per process and instantiation, not every call.
+template <int NT>
+cudaError_t allow_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      ffn_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  return err;
+}
+
+template <int NT>
+cudaError_t launch(const bf16* x, const unsigned char* image, const float* b2, int r, int d,
+                   int chunks, int cluster, bf16* out, cudaStream_t stream) {
+  cudaError_t err = allow_smem<NT>();
+  if (err != cudaSuccess) return err;
+  int stages = 0, apart = 0;
+  const int bytes = smem_bytes(NT, chunks, cluster, &stages, &apart);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(r, bytes, cluster, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, ffn_kernel<NT>, x, image, b2, r, d, chunks, stages, apart, out);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t max_clusters(int bytes, int cluster, int* count) {
+  const cudaError_t err = allow_smem<NT>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(kRows, bytes, cluster, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(count, ffn_kernel<NT>, &cfg);
+}
+
+}  // namespace ffn
 
 }  // namespace
 
-// x (r, d) bf16, w (ceil16(vocab), d) bf16, b (>= vocab) bf16, all contiguous and
+// x (r, d), w (ceil16(vocab), d) bf16, b (>= vocab) bf16, all contiguous and
 // 16-byte aligned -> out (r,) int64. Returns the cudaError_t of the launch.
 extern "C" int spacap_generator_argmax(const void* x, const void* w, const void* b, int r, int d,
                                        int vocab, long long* out, void* stream) {
   if (bad_shape(r, d) || vocab <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = shared_bytes_gen(d);
-  cudaError_t err = set_shared(gen_argmax_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // once per process, for the widest d, not on every call
+  static const cudaError_t attr_err =
+      shared_bytes_gen(kMaxD) <= 48 * 1024
+          ? cudaSuccess
+          : cudaFuncSetAttribute(gen_argmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 shared_bytes_gen(kMaxD));
+  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
   const unsigned blocks = static_cast<unsigned>((r + kRows - 1) / kRows);
-  gen_argmax_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  gen_argmax_kernel<<<blocks, kThreads, shared_bytes_gen(d), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b), r, d,
       vocab, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (r, d), w1 (f, d), b1 (f,), w2 (d, f), b2 (d,) bf16, contiguous and 16-byte
-// aligned, d and f multiples of 16 -> out (r, d) bf16. Returns the cudaError_t.
-extern "C" int spacap_ffn(const void* x, const void* w1, const void* b1, const void* w2,
-                          const void* b2, int r, int d, int f, void* out, void* stream) {
-  if (bad_shape(r, d) || f <= 0 || f % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = shared_bytes_ffn(d);
-  cudaError_t err = set_shared(ffn_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((r + kRows - 1) / kRows);
-  ffn_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), r, d, f,
-      static_cast<bf16*>(out));
-  return static_cast<int>(cudaGetLastError());
+// x (r, d) bf16 contiguous and 16-byte aligned; image: pack_ffn's chunks
+// (`chunks` of 64 d_ff columns at d_pad = d rounded up to 64); b2 (d_pad,) f32;
+// `cluster` blocks (1-8) split d_ff -> out (r, d) bf16. Returns the cudaError_t.
+extern "C" int spacap_ffn(const void* x, const void* image, const void* b2, int r, int d,
+                          int chunks, int cluster, void* out, void* stream) {
+  if (bad_shape(r, d) || chunks <= 0 || cluster < 1 || cluster > ffn::kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xp = static_cast<const bf16*>(x);
+  const auto* ip = static_cast<const unsigned char*>(image);
+  const auto* bp = static_cast<const float*>(b2);
+  auto* op = static_cast<bf16*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch ((d + 63) / 64) {
+    case 1: err = ffn::launch<1>(xp, ip, bp, r, d, chunks, cluster, op, s); break;
+    case 2: err = ffn::launch<2>(xp, ip, bp, r, d, chunks, cluster, op, s); break;
+    case 3: err = ffn::launch<3>(xp, ip, bp, r, d, chunks, cluster, op, s); break;
+    default: err = ffn::launch<4>(xp, ip, bp, r, d, chunks, cluster, op, s); break;
+  }
+  return static_cast<int>(err);
 }
+
+// The launch spacap_ffn makes for (d, chunks, cluster): its ring stages, its
+// dynamic shared memory in bytes, and how many of its clusters the device
+// holds at once (cudaOccupancyMaxActiveClusters). Returns the cudaError_t.
+extern "C" int spacap_ffn_launch_info(int d, int chunks, int cluster, int* stages, int* smem,
+                                      int* clusters) {
+  if (bad_shape(1, d) || chunks <= 0 || cluster < 1 || cluster > ffn::kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = (d + 63) / 64;
+  int apart = 0;
+  *smem = ffn::smem_bytes(nt, chunks, cluster, stages, &apart);
+  cudaError_t err;
+  switch (nt) {
+    case 1: err = ffn::max_clusters<1>(*smem, cluster, clusters); break;
+    case 2: err = ffn::max_clusters<2>(*smem, cluster, clusters); break;
+    case 3: err = ffn::max_clusters<3>(*smem, cluster, clusters); break;
+    default: err = ffn::max_clusters<4>(*smem, cluster, clusters); break;
+  }
+  return static_cast<int>(err);
+}
+
+#ifdef SPACAP_FFN_TIMELINE
+// Copies the first n marks (8 a block, block-major) of the last ffn launch.
+extern "C" int spacap_ffn_timeline(unsigned long long* host, int n) {
+  if (n > kTimelineBlocks * kTimelineMarks) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, g_ffn_timeline, sizeof(unsigned long long) * n));
+}
+#endif

@@ -211,8 +211,8 @@ class _DecodeWeights:
         if self.fused:
             for w, layer in zip(self.layers, model.decoder.layers):
                 ff = layer.feed_forward
-                w["ffn"] = (bf16(ff.w_1.matrix()), bf16(ff.w_1.bias),
-                            bf16(ff.w_2.matrix()), bf16(ff.w_2.bias))
+                w["ffn"] = ops.pack_ffn(bf16(ff.w_1.matrix()), bf16(ff.w_1.bias),
+                                        bf16(ff.w_2.matrix()), bf16(ff.w_2.bias))
             proj = model.generator.proj
             self.gen = ops.pad_generator(bf16(proj.matrix()), bf16(proj.bias))
         self.vocab = cfg.vocab_size
@@ -296,7 +296,7 @@ class Captioner(nn.Module):
                 x = x + dense(merge_heads(att).to(dd).float(), lw["src3_w"], lw["src3_b"]).to(dd)
             xn = norm(lw["ln2"], x)
             if w.fused:
-                x = x + ops.ffn(xn[:, 0], *lw["ffn"])[:, None]
+                x = x + ops.ffn(xn[:, 0], lw["ffn"])[:, None]
             else:
                 hid = torch.relu(dense(xn.float(), lw["w1"], lw["b1"])).to(dd)
                 x = x + dense(hid.float(), lw["w2"], lw["b2"]).to(dd)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -73,15 +74,38 @@ def _compile(lib_path: Path, sources) -> None:
         obj.unlink()
 
 
-def ptxas_report() -> str:
-    """The register / shared-memory lines nvcc printed for each kernel."""
-    lines = []
+def ptxas_info() -> dict:
+    """Per kernel entry (mangled name), as ``nvcc -Xptxas -v`` printed it at
+    the last build: registers, stack frame, spill stores and loads (bytes),
+    static shared memory (bytes) and, where ptxas serialized its wgmma
+    (notes C7510-C7519), the note's code."""
+    info, entry = {}, None
     for src in _sources():
         log = BUILD_DIR / f"{src.stem}.log"
-        if log.exists():
-            lines += [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "Compiling entry" in ln]
-    return "\n".join(lines)
+        if not log.exists():
+            continue
+        for ln in log.read_text().splitlines():
+            m = re.search(r"\((C751\d)\) .*wgmma.* in the function '([^']+)'", ln)
+            if m:
+                info.setdefault(m.group(2), {})["wgmma_serialized"] = m.group(1)
+                continue
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                entry = info.setdefault(m.group(1), {})
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", ln)
+            if m:
+                entry.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                entry["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", ln)
+                entry["static_smem"] = int(m.group(1)) if m else 0
+    return info
 
 
 def library() -> ctypes.CDLL:
@@ -104,8 +128,11 @@ def library() -> ctypes.CDLL:
     lib.spacap_ball_query.restype = i32
     lib.spacap_generator_argmax.argtypes = [vp, vp, vp, i32, i32, i32, vp, vp]
     lib.spacap_generator_argmax.restype = i32
-    lib.spacap_ffn.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp, vp]
+    lib.spacap_ffn.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp, vp]
     lib.spacap_ffn.restype = i32
+    i32p = ctypes.POINTER(i32)
+    lib.spacap_ffn_launch_info.argtypes = [i32, i32, i32, i32p, i32p, i32p]
+    lib.spacap_ffn_launch_info.restype = i32
     _lib = lib
     return lib
 

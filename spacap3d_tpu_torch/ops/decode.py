@@ -5,13 +5,16 @@ Contract (as ``spacap3d_tpu/ops/decode_pallas.py``), all operands bf16:
 * ``generator_argmax(x, w, b, vocab)``: for each row of x (R, d), the first
   index j < vocab of the maximum of ``x . w[j] + b[j]``, with f32
   accumulation and the bias added in f32; the logits are never written.
-* ``ffn(x, w1, b1, w2, b2)``: ``bf16(bf16(relu(x @ w1^T + b1)) @ w2^T + b2)``,
-  f32 accumulation, the (R, d_ff) hidden kept on chip.
+* ``ffn(x, pack_ffn(w1, b1, w2, b2))``:
+  ``bf16(bf16(relu(x @ w1^T + b1)) @ w2^T + b2)``, f32 accumulation, the
+  (R, d_ff) hidden kept on chip.
 
 Weights keep the port's (out, in) layout. The generator's rows are padded
 to a multiple of 16 (``pad_generator``), the kernel's column fragment; the
-padded columns are never candidates. d and d_ff are multiples of 16 and
-d is at most 256, or the wrappers raise.
+padded columns are never candidates. ``pack_ffn`` lays the FFN's weights
+out once per decode as the shared-memory image the FFN kernel reads (see
+its docstring). d and d_ff are multiples of 16 and d is at most 256, or
+the wrappers raise.
 
 The wrappers launch the CUDA kernels (``csrc/decode.cu``) for CUDA tensors
 and take the plain versions for CPU tensors. The plain versions repeat the
@@ -21,7 +24,10 @@ and unfused decodes give the same bits.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import dataclasses
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -29,6 +35,14 @@ from spacap3d_tpu_torch.ops import _build
 
 COL_MULTIPLE = 16
 MAX_D = 256
+# the FFN kernel (csrc/decode.cu, namespace ffn): 64 rows a block, d padded to
+# 64-column output tiles, d_ff cut into 64-column chunks, 8 x 8 core matrices,
+# at most 8 blocks (the portable cluster size) splitting d_ff
+FFN_ROWS = 64
+FFN_TILE = 64
+FFN_CHUNK = 64
+FFN_CORE = 8
+FFN_MAX_CLUSTER = 8
 
 
 def pad_generator(w: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -56,6 +70,112 @@ def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     return (torch.matmul(hid.float(), w2.float().t()) + b2.float()).to(x.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class PackedFFN:
+    """One FFN's weights as ``pack_ffn`` lays them out, and as given."""
+
+    image: torch.Tensor      # (chunks, stage bytes) uint8: the kernel's shared-memory image
+    b2_pad: torch.Tensor     # (d_pad,) f32, zero past d
+    w1: torch.Tensor         # (d_ff, d) bf16, as given: the plain version's operands
+    b1: torch.Tensor         # (d_ff,)
+    w2: torch.Tensor         # (d, d_ff)
+    b2: torch.Tensor         # (d,)
+
+    @property
+    def d(self) -> int:
+        return self.w1.shape[1]
+
+    @property
+    def d_ff(self) -> int:
+        return self.w1.shape[0]
+
+    @property
+    def chunks(self) -> int:
+        return self.image.shape[0]
+
+
+def _cores(m: torch.Tensor) -> torch.Tensor:
+    """(..., rows, k) -> (..., rows / 8, k / 8, 8, 8): core matrix (i, j) holds
+    rows 8i.. and columns 8j.., each core's 8 rows of 16 bytes contiguous."""
+    *lead, rows, k = m.shape
+    m = m.reshape(*lead, rows // FFN_CORE, FFN_CORE, k // FFN_CORE, FFN_CORE)
+    return m.transpose(-3, -2)
+
+
+def pack_ffn(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+             b2: torch.Tensor) -> PackedFFN:
+    """Lays out one FFN's bf16 weights, w1 (d_ff, d), b1 (d_ff,), w2 (d, d_ff)
+    and b2 (d,), as the FFN kernel's shared-memory image; once per decode.
+
+    d is zero-padded to d_pad (a multiple of 64) and d_ff to a multiple of
+    64; a zero row of w1 with a zero b1 gives relu(0) = 0, which adds nothing.
+    Chunk c of the image (one bulk copy) holds, in order:
+
+    * w1 rows [64c, 64c + 64) as a (64, d_pad) matrix,
+    * w2 columns [64c, 64c + 64) as a (d_pad, 64) matrix,
+    * b1[64c:64c + 64] in f32.
+
+    Each matrix is K-major without swizzle (K: d for w1, d_ff for w2), cut
+    into 8 x 8 core matrices of 128 contiguous bytes, core (i, j) at byte
+    128 (i K / 8 + j): the layout the kernel's wgmma descriptors name.
+    b1 and b2 go to f32, which is exact. Runs on any device, in plain torch.
+    """
+    if w1.dim() != 2:
+        raise ValueError(f"pack_ffn: w1 must be (d_ff, d), got {tuple(w1.shape)}")
+    f, d = w1.shape
+    _check("pack_ffn", (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)),
+           ((f, d), (f,), (d, f), (d,)))
+    _check_width("pack_ffn", d)
+    if f % 16 or f <= 0:
+        raise ValueError(f"pack_ffn: d_ff = {f} must be a positive multiple of 16")
+    dp, fp = d + (-d % FFN_TILE), f + (-f % FFN_CHUNK)
+    chunks = fp // FFN_CHUNK
+    w1p = w1.new_zeros((fp, dp))
+    w1p[:f, :d] = w1
+    w2p = w2.new_zeros((dp, fp))
+    w2p[:d, :f] = w2
+    b1p = torch.zeros((fp,), dtype=torch.float32, device=b1.device)
+    b1p[:f] = b1.float()
+    b2p = torch.zeros((dp,), dtype=torch.float32, device=b2.device)
+    b2p[:d] = b2.float()
+    w1c = _cores(w1p.reshape(chunks, FFN_CHUNK, dp))
+    w2c = _cores(w2p.reshape(dp, chunks, FFN_CHUNK).transpose(0, 1))
+    image = torch.cat([w1c.reshape(chunks, -1).view(torch.uint8),
+                       w2c.reshape(chunks, -1).view(torch.uint8),
+                       b1p.reshape(chunks, FFN_CHUNK).view(torch.uint8)], dim=1)
+    return PackedFFN(image.contiguous(), b2p, *(t.contiguous() for t in (w1, b1, w2, b2)))
+
+
+def ffn_cluster(r: int, chunks: int, resident: Callable[[int], int]) -> int:
+    """Blocks that split d_ff (S): the largest S <= 8, and no more than the
+    chunks, whose ceil(r / 64) clusters of S blocks the device holds all at
+    once (``resident(S)``: co-resident clusters), so the grid is one wave;
+    1 where no S >= 2 fits in one wave."""
+    tiles = -(-r // FFN_ROWS)
+    for s in range(min(FFN_MAX_CLUSTER, chunks), 1, -1):
+        if resident(s) >= tiles:
+            return s
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_launch_info(device_index: int, d: int, chunks: int, cluster: int) -> dict:
+    """The FFN kernel's launch on CUDA device ``device_index``: ring stages,
+    dynamic shared memory (bytes) and co-resident clusters."""
+    out = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(device_index):
+        err = _build.library().spacap_ffn_launch_info(d, chunks, cluster, *map(ctypes.byref, out))
+    _build.check(err, "ffn launch info")
+    return dict(zip(("stages", "dynamic_smem", "max_active_clusters"), (o.value for o in out)))
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_default_cluster(device_index: int, r: int, d: int, chunks: int) -> int:
+    """The S that ``ffn`` takes by default for R = r on that device."""
+    return ffn_cluster(r, chunks, lambda s: ffn_launch_info(
+        device_index, d, chunks, s)["max_active_clusters"])
+
+
 def _check(name: str, named, shapes) -> torch.device:
     """Dtype, shape and device checks of (arg name, tensor) pairs."""
     dev = named[0][1].device
@@ -63,7 +183,7 @@ def _check(name: str, named, shapes) -> torch.device:
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name}: {arg} must be bfloat16, got {t.dtype}")
         if t.device != dev:
-            raise ValueError(f"{name}: {arg} is on {t.device}, x on {dev}")
+            raise ValueError(f"{name}: {arg} is on {t.device}, {named[0][0]} on {dev}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, want {shape}")
     if dev.type not in ("cpu", "cuda"):
@@ -110,27 +230,28 @@ def generator_argmax(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-        b2: torch.Tensor) -> torch.Tensor:
-    """x (R, d), w1 (F, d), b1 (F,), w2 (d, F), b2 (d,) bf16 -> (R, d) bf16."""
-    if x.dim() != 2 or w1.dim() != 2:
-        raise ValueError("ffn: x and w1 must be 2-D")
+def ffn(x: torch.Tensor, packed: PackedFFN, *, cluster: Optional[int] = None) -> torch.Tensor:
+    """x (R, d) bf16, ``packed = pack_ffn(w1, b1, w2, b2)`` on x's device ->
+    (R, d) bf16. ``cluster`` (1-8) sets how many blocks split d_ff; by
+    default ``ffn_default_cluster`` picks it from R and the device."""
+    if x.dim() != 2:
+        raise ValueError(f"ffn: x must be (R, d), got {tuple(x.shape)}")
     r, d = x.shape
-    f = w1.shape[0]
-    named = (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2))
-    dev = _check("ffn", named, ((r, d), (f, d), (f,), (d, f), (d,)))
-    _check_width("ffn", d)
-    if f % 16 or f <= 0:
-        raise ValueError(f"ffn: d_ff = {f} must be a positive multiple of 16")
+    dev = _check("ffn", (("x", x), ("packed.w1", packed.w1)),
+                 ((r, packed.d), (packed.d_ff, packed.d)))
     if dev.type == "cpu":
-        return ffn_plain(x, w1, b1, w2, b2)
-    _check_cuda("ffn", named)
+        return ffn_plain(x, packed.w1, packed.b1, packed.w2, packed.b2)
+    _check_cuda("ffn", (("x", x),))
+    if cluster is None:
+        cluster = ffn_default_cluster(dev.index, r, d, packed.chunks)
+    elif not 1 <= cluster <= FFN_MAX_CLUSTER:
+        raise ValueError(f"ffn: cluster = {cluster} must be in [1, {FFN_MAX_CLUSTER}]")
     lib = _build.library()
     with torch.cuda.device(dev):
         out = torch.empty((r, d), dtype=torch.bfloat16, device=dev)
-        err = lib.spacap_ffn(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            r, d, f, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.spacap_ffn(x.data_ptr(), packed.image.data_ptr(), packed.b2_pad.data_ptr(), r, d,
+                             packed.chunks, cluster, out.data_ptr(),
+                             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ffn")
     ffn.launches += 1
     return out

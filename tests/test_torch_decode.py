@@ -96,7 +96,7 @@ def test_ffn_plain_matches_pallas_interpret(n):
     b2j, b2t = _bf16(rng.randn(32) * 0.2)
     with pltpu.force_tpu_interpret_mode():
         want = jax.jit(lambda x: dp.ffn(x, w1j, b1j, w2j, b2j))(xj)
-    got = ops.ffn(xt, w1t.t().contiguous(), b1t, w2t.t().contiguous(), b2t)
+    got = ops.ffn(xt, ops.pack_ffn(w1t.t().contiguous(), b1t, w2t.t().contiguous(), b2t))
     assert got.dtype == torch.bfloat16 and got.shape == (n, 32)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=FFN_RTOL, atol=FFN_ATOL)
@@ -107,16 +107,101 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="multiple of 16"):
         ops.generator_argmax(x, torch.zeros(16, 24, dtype=torch.bfloat16),
                              torch.zeros(16, dtype=torch.bfloat16), 16)
-    x = torch.zeros(4, 32)
-    w1, b1 = torch.zeros(64, 32), torch.zeros(64)
-    with pytest.raises(ValueError, match="bfloat16"):
-        ops.ffn(x, w1, b1, torch.zeros(32, 64), torch.zeros(32))
     bf = torch.bfloat16
+    x = torch.zeros(4, 32)
+    w1, b1, w2, b2 = (torch.zeros(s, dtype=bf) for s in ((64, 32), (64,), (32, 64), (32,)))
+    packed = ops.pack_ffn(w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.ffn(x, packed)
+    with pytest.raises(ValueError, match="shape"):                # x of another width
+        ops.ffn(torch.zeros(4, 48, dtype=bf), packed)
     with pytest.raises(ValueError, match="shape"):                # vocab not padded to 16
         ops.generator_argmax(x.to(bf), torch.zeros(20, 32, dtype=bf), torch.zeros(20, dtype=bf), 20)
     meta = torch.zeros(4, 32, dtype=bf, device="meta")
     with pytest.raises(ValueError, match="device"):
-        ops.ffn(meta, *(t.to(bf).to("meta") for t in (w1, b1, torch.zeros(32, 64), torch.zeros(32))))
+        ops.ffn(meta, ops.pack_ffn(*(t.to("meta") for t in (w1, b1, w2, b2))))
+    with pytest.raises(ValueError, match="packed.w1 is on cpu"):  # weights on another device
+        ops.ffn(meta, packed)
+
+
+def _ffn_weights(rng, d, f):
+    """bf16 (w1, b1, w2, b2) at the xavier / torch-default init ranges."""
+    lim = np.sqrt(6 / (d + f))
+    return tuple(_bf16(a)[1] for a in (rng.uniform(-lim, lim, (f, d)),
+                                       rng.uniform(-1, 1, f) / np.sqrt(d),
+                                       rng.uniform(-lim, lim, (d, f)),
+                                       rng.uniform(-1, 1, d) / np.sqrt(f)))
+
+
+def _read_image(packed, d, f):
+    """Reads (w1, w2, b1) back from ``packed.image`` at d_pad and d_ff_pad, by
+    the layout pack_ffn documents: in a (rows, K) matrix, element (n, k) is
+    bf16 number 64 ((n // 8) K / 8 + k // 8) + 8 (n % 8) + k % 8."""
+    dp, fp = -(-d // 64) * 64, -(-f // 64) * 64
+    img = packed.image
+    assert img.dtype == torch.uint8 and img.shape == (fp // 64, 2 * 64 * dp * 2 + 64 * 4)
+
+    def read(flat, rows, k):
+        n, kk = np.meshgrid(np.arange(rows), np.arange(k), indexing="ij")
+        idx = 64 * ((n // 8) * (k // 8) + kk // 8) + 8 * (n % 8) + kk % 8
+        return flat[torch.from_numpy(idx)]
+
+    w1 = torch.zeros(fp, dp, dtype=torch.bfloat16)
+    w2 = torch.zeros(dp, fp, dtype=torch.bfloat16)
+    b1 = torch.zeros(fp)
+    wb = 64 * dp * 2
+    for c in range(fp // 64):
+        w1[64 * c:64 * c + 64] = read(img[c, :wb].view(torch.bfloat16), 64, dp)
+        w2[:, 64 * c:64 * c + 64] = read(img[c, wb:2 * wb].view(torch.bfloat16), dp, 64)
+        b1[64 * c:64 * c + 64] = img[c, 2 * wb:].view(torch.float32)
+    return w1, w2, b1
+
+
+@pytest.mark.parametrize("d,f", [(128, 2048), (32, 64), (144, 1040)])
+def test_pack_ffn_round_trips_and_pads_with_zeros(d, f):
+    w1, b1, w2, b2 = _ffn_weights(np.random.RandomState(d + f), d, f)
+    packed = ops.pack_ffn(w1, b1, w2, b2)
+    assert (packed.d, packed.d_ff) == (d, f)
+    got_w1, got_w2, got_b1 = _read_image(packed, d, f)
+    assert torch.equal(got_w1[:f, :d], w1) and torch.equal(got_w2[:d, :f], w2)
+    assert torch.equal(got_b1[:f], b1.float()) and torch.equal(packed.b2_pad[:d], b2.float())
+    assert packed.b2_pad.dtype == torch.float32 and packed.b2_pad.shape == (got_w2.shape[0],)
+    for pad in (got_w1[f:], got_w1[:, d:], got_w2[d:], got_w2[:, f:], got_b1[f:],
+                packed.b2_pad[d:]):
+        assert not pad.float().abs().sum()
+
+
+@pytest.mark.parametrize("r,d,f", [(200, 128, 2048), (64, 32, 64), (100, 144, 1040)])
+def test_ffn_on_packed_weights_equals_ffn_plain_bit_for_bit(r, d, f):
+    rng = np.random.RandomState(r)
+    weights = _ffn_weights(rng, d, f)
+    _, x = _bf16(rng.randn(r, d))
+    got = ops.ffn(x, ops.pack_ffn(*weights))
+    assert got.dtype == torch.bfloat16 and torch.equal(got, ops.ffn_plain(x, *weights))
+
+
+@pytest.mark.parametrize("shapes,dtype,match", [
+    (((64, 24), (64,), (24, 64), (24,)), torch.bfloat16, "multiple of 16"),   # d
+    (((64, 272), (64,), (272, 64), (272,)), torch.bfloat16, "at most 256"),   # d
+    (((40, 32), (40,), (32, 40), (32,)), torch.bfloat16, "d_ff = 40"),        # d_ff
+    (((64, 32), (64,), (64, 32), (32,)), torch.bfloat16, "w2 has shape"),     # w2 not (d, d_ff)
+    (((64, 32), (32,), (32, 64), (32,)), torch.bfloat16, "b1 has shape"),
+    (((64, 32), (64,), (32, 64), (32,)), torch.float32, "bfloat16"),
+])
+def test_pack_ffn_refuses_what_the_kernel_does_not_take(shapes, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        ops.pack_ffn(*(torch.zeros(s, dtype=dtype) for s in shapes))
+
+
+@pytest.mark.parametrize("r,chunks,want", [
+    (2048, 32, 3), (2000, 32, 3),          # 32 row tiles: 30 clusters of 4 resident, 44 of 3
+    (132 * 64, 32, 1), (10 ** 5, 32, 1),   # the row tiles alone fill the card
+    (64, 32, 8), (64, 2, 2), (1, 1, 1),    # at most 8, at most a chunk a block
+])
+def test_ffn_cluster_is_the_largest_that_runs_in_one_wave(r, chunks, want):
+    def resident(s):   # an H100's co-resident 64-row clusters at d 128 by size
+        return {1: 132, 2: 66, 3: 44, 4: 30, 5: 22, 6: 16, 7: 14, 8: 14}[s]
+    assert ops.ffn_cluster(r, chunks, resident) == want
 
 
 def _tiny(**kw):
