@@ -4,10 +4,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``spacap3d_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version at every shape the eval forward gives it,
-drives the eval forward at full width (default ModelConfig, B=8, 40,000
-points) through ``make_eval_step``, unfused and with ``eval_decode_fused``
-(the fused decode kernels), checks that each forward launched its kernels,
+against its plain PyTorch version at every shape the eval forward gives it
+(FPS also at every cluster size the device holds, on lattice ties, a ragged
+row, a row with fewer valid points than picks, a 60,000-point row and a row
+above the cluster kernel's limit), drives the eval forward at full width
+(default ModelConfig, B=8, 40,000 points) through ``make_eval_step``,
+unfused and with ``eval_decode_fused`` (the fused decode kernels), checks
+that each forward launched its kernels,
 compares the two forwards' tokens and times them in alternation, and
 compares the port on the CPU with the port on the card at a reduced size.
 Exits non-zero if any phase fails or if CUDA is missing. Prints a line per
@@ -93,14 +96,113 @@ def bench_points(rng, b, n):
     return pts, np.concatenate([pts, height], -1).astype(np.float32)
 
 
-def fps_input(rng, n):
-    pts, _ = bench_points(rng, B, n)
-    if n <= 4096:   # half the cloud on a 0.25 m lattice: exact distance ties
-        pts[:, : n // 2] = np.round(pts[:, : n // 2] * 4.0) / 4.0
+def fps_input(rng, n, b=None, lattice=None):
+    """Bench-style clouds with never-picked points and duplicates. Rows of
+    up to 4096 points (or ``lattice=True``) put half the cloud (all of it)
+    on a 0.25 m lattice: exact distance ties, across the cluster's ranks
+    too."""
+    pts, _ = bench_points(rng, b or B, n)
+    if lattice or (lattice is None and n <= 4096):
+        k = n if lattice else n // 2
+        pts[:, :k] = np.round(pts[:, :k] * 4.0) / 4.0
     q = n // 8
     pts[:, q // 2:q // 2 + q // 4] = 0.0        # ||p||^2 <= 1e-3: never picked
     pts[:, n - 2 * q:n - q] = pts[:, q:2 * q]   # duplicates: exact ties
     return pts
+
+
+def fps_sparse_input(rng, n, valid):
+    """Rows with fewer valid points than picks: the rest sit at the origin."""
+    pts = np.zeros((2, n, 3), np.float32)
+    for row in pts:
+        row[rng.choice(n, valid, replace=False)] = rng.rand(valid, 3).astype(np.float32) * 6 + 0.1
+    return pts
+
+
+def fps_held(n):
+    """The cluster sizes the device can run a row of n points at."""
+    dev = torch.cuda.current_device()
+    return [c for c in ops.fps.FPS_CLUSTERS if -(-n // c) <= ops.fps.FPS_BLOCK_POINTS
+            and ops.fps_launch_info(dev, n, c)["max_active_clusters"] >= 1]
+
+
+def fps_check(xyz, npoint, what):
+    """The kernel at the default C and at every C the device holds, against
+    the plain version: equal indices. Returns the default C and the Cs run."""
+    want = ops.furthest_point_sample_plain(xyz, npoint)
+    b, n, _ = xyz.shape
+    auto = ops.fps_default_cluster(torch.cuda.current_device(), b, n)
+    runs = [None] + [c for c in fps_held(n) if c != auto]
+    for c in runs:
+        got = ops.furthest_point_sample(xyz, npoint, cluster=c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = torch.nonzero(got != want)[0].tolist()
+            raise AssertionError(f"fps {what} N={n} npoint={npoint} cluster={c or auto}: kernel "
+                                 f"!= plain, first at (row, step) {bad}")
+    return auto, [auto] + runs[1:]
+
+
+def fps_launch_row(n, cluster, ptxas):
+    """The cluster kernel's launch at C = cluster: threads, points a thread,
+    shared memory, co-resident clusters and ptxas's registers and spills."""
+    info = ops.fps_launch_info(torch.cuda.current_device(), n, cluster)
+    name = f"fps_kernel_clusterILi{info['points_per_thread']}E"
+    pt = next(v for k, v in ptxas.items() if name in k)
+    return dict(info, registers=pt.get("registers"), spill_stores=pt.get("spill_stores"),
+                spill_loads=pt.get("spill_loads"))
+
+
+def phase_fps():
+    """FPS at the main-path shapes, at the default C and every C the device
+    holds (timed: the C sweep), and at a threads sweep; then the tie,
+    ragged, sparse and long-row cases, each index-equal to the plain
+    version."""
+    rows = []
+    rng = np.random.RandomState(0)
+    ptxas = _build.ptxas_info()
+    log("kernels", kernel="fps", block_points=_build.library().spacap_fps_block_points())
+    for n, npoint in FPS_SHAPES:
+        xyz = torch.from_numpy(fps_input(rng, n)).to(DEV)
+        auto, ran = fps_check(xyz, npoint, "main path")
+        reps = 3 if n > 4096 else 20
+        k_ms = cuda_ms(lambda: ops.furthest_point_sample(xyz, npoint), reps=reps)
+        p_ms = cuda_ms(lambda: ops.furthest_point_sample_plain(xyz, npoint),
+                       reps=1, runs=3, warmup=1)
+        sweep = {str(c): cuda_ms(lambda: ops.furthest_point_sample(xyz, npoint, cluster=c),
+                                 reps=reps) for c in ran[1:]}
+        sweep[str(auto)] = k_ms
+        threads = {}   # at the default C, over caps on a block's threads
+        for t in (32, 64, 128, 256, 512, 1024):
+            if -(-n // auto) <= t * 32:
+                info = ops.fps_launch_info(torch.cuda.current_device(), n, auto, t)
+                threads[str(t)] = dict(threads=info["threads"],
+                                       points_per_thread=info["points_per_thread"],
+                                       ms=cuda_ms(lambda: ops.furthest_point_sample(
+                                           xyz, npoint, cluster=auto, threads=t), reps=reps))
+        flops = 9.0 * (npoint - 1) * B * n        # 3 sub, 1 mul, 2 fma, 1 min a point-step
+        b_ms, b_by = bound(flops, B * n * 12 + B * npoint * 4)
+        row = dict(shape=[B, n, 3], npoint=npoint, max_abs_err=0, ms=k_ms, plain_ms=p_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None, cluster=auto,
+                   us_per_step=k_ms * 1e3 / (npoint - 1), **fps_launch_row(n, auto, ptxas),
+                   cluster_sweep_ms=sweep, threads_sweep_ms=threads,
+                   clusters_checked=ran)
+        log("kernels", kernel="fps", **row)
+        rows.append(row)
+    limit = 16 * ops.fps.FPS_BLOCK_POINTS + 1
+    cases = [("lattice 0.25 m", fps_input(rng, 40000, lattice=True), 2048),
+             ("ragged", fps_input(rng, 39999), 2048),
+             ("fewer valid points than npoint", fps_sparse_input(rng, 40000, 100), 256),
+             ("60000 points", fps_input(rng, 60000, b=2), 64),
+             ("above the cluster limit", fps_input(rng, limit, b=2), 16)]
+    for what, pts, npoint in cases:
+        xyz = torch.from_numpy(pts).to(DEV)
+        auto, ran = fps_check(xyz, npoint, what)
+        log("kernels", kernel="fps", case=what, shape=list(pts.shape), npoint=npoint,
+            cluster=auto, clusters_checked=ran, equal=True)
+        if what == "above the cluster limit" and auto != 0:
+            raise AssertionError(f"fps N={limit}: cluster {auto}, want the streaming kernel")
+    return rows
 
 
 def bq_input(rng, n, m, r):
@@ -116,31 +218,8 @@ def bq_input(rng, n, m, r):
 
 
 def phase_kernels():
-    results = {"fps": [], "ball_query": []}
+    results = {"fps": phase_fps(), "ball_query": []}
     rng = np.random.RandomState(0)
-    for n, npoint in FPS_SHAPES:
-        xyz = torch.from_numpy(fps_input(rng, n)).to(DEV)
-        got = ops.furthest_point_sample(xyz, npoint)
-        want = ops.furthest_point_sample_plain(xyz, npoint)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err:
-            raise AssertionError(f"fps N={n} npoint={npoint}: kernel != plain")
-        k_ms = cuda_ms(lambda: ops.furthest_point_sample(xyz, npoint),
-                       reps=3 if n > 4096 else 20)
-        p_ms = cuda_ms(lambda: ops.furthest_point_sample_plain(xyz, npoint),
-                       reps=1, runs=3, warmup=1)
-        flops = 9.0 * (npoint - 1) * B * n        # 3 sub, 1 mul, 2 fma, 1 min a point-step
-        b_ms, b_by = bound(flops, B * n * 12 + B * npoint * 4)
-        row = dict(shape=[B, n, 3], npoint=npoint, max_abs_err=err, ms=k_ms,
-                   plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-        log("kernels", kernel="fps", **row)
-        results["fps"].append(row)
-    # off the main path: a row too long for shared memory (global scratch)
-    xyz = torch.from_numpy(fps_input(rng, 60000)[:2]).to(DEV)
-    if not torch.equal(ops.furthest_point_sample(xyz, 64),
-                       ops.furthest_point_sample_plain(xyz, 64)):
-        raise AssertionError("fps N=60000 (global scratch row): kernel != plain")
     for n, m, r, ns in BQ_SHAPES:
         pts, centers = bq_input(rng, n, m, r)
         xyz, cen = torch.from_numpy(pts).to(DEV), torch.from_numpy(centers).to(DEV)
@@ -620,6 +699,11 @@ def main() -> int:
             "library_ms": None if None in lib else sum(lib),
             "per_shape": rows,
         })
+        if name == "fps":   # the split, block and build of each main-path launch
+            kernels[-1]["launch"] = [{k: r[k] for k in (
+                "shape", "npoint", "cluster", "threads", "points_per_thread", "shared_memory",
+                "max_active_clusters", "registers", "spill_stores", "spill_loads",
+                "us_per_step")} for r in main]
         if name == "ffn":   # the split and the build of the main-path launch
             kernels[-1].update({k: main[0][k] for k in (
                 "cluster", "stages", "dynamic_smem", "max_active_clusters", "ptxas")})

@@ -16,6 +16,9 @@ from spacap3d_tpu_torch.ops.decode import (  # noqa: F401
     pad_generator,
 )
 from spacap3d_tpu_torch.ops.fps import (  # noqa: F401
+    fps_cluster,
+    fps_default_cluster,
+    fps_launch_info,
     furthest_point_sample,
     furthest_point_sample_plain,
 )

@@ -119,10 +119,13 @@ def library() -> ctypes.CDLL:
         _compile(lib_path, sources)
     lib = ctypes.CDLL(str(lib_path))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.spacap_fps.argtypes = [vp, i32, i32, i32, vp, vp, vp]
+    i32p = ctypes.POINTER(i32)
+    lib.spacap_fps.argtypes = [vp, i32, i32, i32, i32, i32, vp, vp, vp]
     lib.spacap_fps.restype = i32
-    lib.spacap_fps_smem_points.argtypes = []
-    lib.spacap_fps_smem_points.restype = i32
+    lib.spacap_fps_block_points.argtypes = []
+    lib.spacap_fps_block_points.restype = i32
+    lib.spacap_fps_launch_info.argtypes = [i32, i32, i32, i32p, i32p, i32p, i32p]
+    lib.spacap_fps_launch_info.restype = i32
     lib.spacap_ball_query.argtypes = [vp, vp, i32, i32, i32, ctypes.c_float,
                                       i32, vp, vp]
     lib.spacap_ball_query.restype = i32
@@ -130,7 +133,6 @@ def library() -> ctypes.CDLL:
     lib.spacap_generator_argmax.restype = i32
     lib.spacap_ffn.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp, vp]
     lib.spacap_ffn.restype = i32
-    i32p = ctypes.POINTER(i32)
     lib.spacap_ffn_launch_info.argtypes = [i32, i32, i32, i32p, i32p, i32p]
     lib.spacap_ffn_launch_info.restype = i32
     _lib = lib

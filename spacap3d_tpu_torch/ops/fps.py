@@ -4,10 +4,18 @@ Contract (as ``spacap3d_tpu/ops/fps.py``): index 0 comes first; points with
 ||p||^2 <= 1e-3 are never picked; each step picks the point with the
 largest min squared distance to the picks so far, lowest index on ties.
 
-``furthest_point_sample`` launches the CUDA kernel (``csrc/fps.cu``) for a
-CUDA tensor and takes the plain version for a CPU tensor.
+``furthest_point_sample`` launches a CUDA kernel (``csrc/fps.cu``) for a
+CUDA tensor and takes the plain version for a CPU tensor. A row of up to
+16 x ``FPS_BLOCK_POINTS`` points is split over a thread-block cluster of C
+blocks, each holding its contiguous share of the row in registers; longer
+rows take a streaming kernel, one block a row. The choice is made from N
+and the device before the launch, never after a failed one.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, Optional
 
 import torch
 
@@ -16,6 +24,11 @@ from spacap3d_tpu_torch.ops._f32 import dot3
 
 MAG_EPS = 1e-3
 INIT_DIST = 1e10
+FPS_CLUSTERS = (1, 2, 4, 8, 16)
+# csrc/fps.cu kBlockPoints: the most points one block of the cluster kernel holds
+FPS_BLOCK_POINTS = 8192
+# the fewest points a block takes in a cluster of 2 or more blocks
+FPS_MIN_BLOCK_POINTS = 1024
 
 
 def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -38,8 +51,57 @@ def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """(B, N, 3) f32 contiguous -> (B, npoint) int32."""
+def fps_cluster(b: int, n: int, resident: Callable[[int], int]) -> int:
+    """Blocks a row of n points is split over (C), for b rows: the largest C
+    in ``FPS_CLUSTERS`` whose b clusters the device holds all at once
+    (``resident(C)``: co-resident clusters) and whose blocks get at least
+    ``FPS_MIN_BLOCK_POINTS`` points (C = 1 always may); else the smallest C
+    that holds the row. 0 (the streaming kernel) when no C the device holds
+    has room for the row."""
+    held = [c for c in FPS_CLUSTERS if -(-n // c) <= FPS_BLOCK_POINTS and resident(c) >= 1]
+    if not held:
+        return 0
+    wave = [c for c in held
+            if resident(c) >= b and (c == 1 or -(-n // c) >= FPS_MIN_BLOCK_POINTS)]
+    return max(wave) if wave else min(held)
+
+
+@functools.lru_cache(maxsize=None)
+def fps_launch_info(device_index: int, n: int, cluster: int, threads: int = 0) -> dict:
+    """The cluster kernel's launch for a row of n points over ``cluster``
+    blocks of at most ``threads`` threads (0: the kernel's default) on CUDA
+    device ``device_index``: threads a block, points a thread, shared memory
+    a block (bytes) and co-resident clusters."""
+    out = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(device_index):
+        err = _build.library().spacap_fps_launch_info(n, cluster, threads,
+                                                      *map(ctypes.byref, out))
+    _build.check(err, "fps launch info")
+    return dict(zip(("threads", "points_per_thread", "shared_memory", "max_active_clusters"),
+                    (o.value for o in out)))
+
+
+@functools.lru_cache(maxsize=None)
+def fps_default_cluster(device_index: int, b: int, n: int) -> int:
+    """The C that ``furthest_point_sample`` takes by default for (b, n) on
+    that device; 0 for the streaming kernel."""
+    return fps_cluster(b, n, lambda c: fps_launch_info(
+        device_index, n, c)["max_active_clusters"])
+
+
+def furthest_point_sample(xyz: torch.Tensor, npoint: int, *, cluster: Optional[int] = None,
+                          threads: Optional[int] = None) -> torch.Tensor:
+    """(B, N, 3) f32 contiguous -> (B, npoint) int32. On CUDA, ``cluster``
+    (1, 2, 4, 8 or 16) forces the blocks a row is split over and ``threads``
+    (a multiple of 32 up to 1024) caps a block's threads; by default
+    ``fps_default_cluster`` picks C from B, N and the device, and the kernel
+    the fewest threads (at least 128) that hold a block's points. Only
+    measurements pass either."""
+    if cluster is not None and (not isinstance(cluster, int) or cluster not in FPS_CLUSTERS):
+        raise ValueError(f"fps: cluster = {cluster!r} must be one of {FPS_CLUSTERS}")
+    if threads is not None and (not isinstance(threads, int) or threads % 32
+                                or not 32 <= threads <= 1024):
+        raise ValueError(f"fps: threads = {threads!r} must be a multiple of 32 up to 1024")
     if xyz.dim() != 3 or xyz.shape[-1] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"fps wants (B, N, 3) float32, got {tuple(xyz.shape)} {xyz.dtype}")
     if xyz.device.type == "cpu":
@@ -49,14 +111,19 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if not xyz.is_contiguous():
         raise ValueError("fps: xyz must be contiguous")
     b, n, _ = xyz.shape
+    if cluster is None:
+        cluster = fps_default_cluster(xyz.device.index, b, n)
+    elif -(-n // cluster) > FPS_BLOCK_POINTS:
+        raise ValueError(f"fps: a cluster of {cluster} blocks holds at most "
+                         f"{cluster * FPS_BLOCK_POINTS} points, not {n}")
     lib = _build.library()
     with torch.cuda.device(xyz.device):
         out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
         scratch = None
-        if n > lib.spacap_fps_smem_points():
+        if cluster == 0:    # the streaming kernel's min distances
             scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
         err = lib.spacap_fps(
-            xyz.data_ptr(), b, n, npoint,
+            xyz.data_ptr(), b, n, npoint, cluster, threads or 0,
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(xyz.device).cuda_stream)
     _build.check(err, "fps")

@@ -19,6 +19,8 @@ from spacap3d_tpu.ops.ball_query_pallas import ball_query_pallas
 from spacap3d_tpu.ops.fps_pallas import furthest_point_sample_pallas
 from spacap3d_tpu_torch import ops
 from spacap3d_tpu_torch.ops import _build
+from spacap3d_tpu_torch.ops._f32 import dot3
+from spacap3d_tpu_torch.ops.fps import INIT_DIST, MAG_EPS
 
 RADII = (0.2, 0.4, 0.8, 1.2, 0.3)   # SA1-SA4 and vote aggregation
 
@@ -55,6 +57,100 @@ def test_fps_fewer_valid_points_than_npoint(rng):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got[1], 0)
     assert set(got[0, 4:]) == {3}
+
+
+def _fps_by_ranks(xyz, npoint, c):
+    """FPS as the cluster kernel (csrc/fps.cu) splits a row: c contiguous
+    ranges of ceil(N / c) points (the last short or empty, padded with
+    -FLT_MAX); each step takes every range's first maximum and merges the
+    c winners in rank order, a strictly larger value taking over. Returns
+    the picks and how many steps had a tie between two ranges."""
+    b, n, _ = xyz.shape
+    per = -(-n // c)
+    x, y, z = xyz.unbind(-1)
+    mind = torch.where(dot3(x, y, z, x, y, z) > MAG_EPS, INIT_DIST, -1.0).to(torch.float32)
+    padded = torch.full((b, c * per), -torch.finfo(torch.float32).max)
+    rows = torch.arange(b)
+    last = torch.zeros(b, dtype=torch.long)
+    out = torch.zeros((b, npoint), dtype=torch.int32)
+    ties = 0
+    for s in range(1, npoint):
+        dx, dy, dz = (t - t[rows, last][:, None] for t in (x, y, z))
+        mind = torch.minimum(mind, dot3(dx, dy, dz, dx, dy, dz))
+        padded[:, :n] = mind
+        ranges = padded.view(b, c, per)
+        local = ranges.argmax(2)                       # each range's first maximum
+        vals = ranges.gather(2, local[..., None])[..., 0]
+        best_v, best_i = vals[:, 0], local[:, 0]
+        for q in range(1, c):
+            take = vals[:, q] > best_v
+            best_v = torch.where(take, vals[:, q], best_v)
+            best_i = torch.where(take, local[:, q] + q * per, best_i)
+        ties += int(((vals == best_v[:, None]).sum(1) > 1).any())
+        last = best_i
+        out[:, s] = last.to(torch.int32)
+    return out, ties
+
+
+def _fps_rank_case(rng, case):
+    if case == "ragged":        # 301 = no multiple of 3, 8 or 16; zeros and duplicates
+        return _fps_cloud(rng, 2, 301), 64
+    if case == "lattice":       # exact ties everywhere, across the ranges too
+        return _fps_cloud(rng, 2, 200, lattice=True), 48
+    xyz = np.zeros((2, 40, 3), np.float32)   # 4 valid points for 12 picks
+    xyz[0, [3, 9, 17, 30]] = rng.randn(4, 3).astype(np.float32) + 3
+    return xyz, 12
+
+
+@pytest.mark.parametrize("case", ["ragged", "lattice", "sparse"])
+@pytest.mark.parametrize("c", [1, 3, 8, 16])
+def test_fps_partition_over_ranks_matches_jax(rng, c, case):
+    """Splitting a row into contiguous ranges and merging the ranges' first
+    maxima in rank order picks what the JAX oracle picks."""
+    xyz, m = _fps_rank_case(rng, case)
+    got, ties = _fps_by_ranks(torch.from_numpy(xyz), m, c)
+    want = np.asarray(jops.furthest_point_sample_xla(jnp.asarray(xyz), m))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "lattice" and c > 1:
+        assert ties > 0
+    if case == "sparse":
+        assert set(got[0, 4:].tolist()) == {3} and not got[1].any()
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("kw", [{"cluster": 0}, {"cluster": 3}, {"cluster": 32},
+                                {"cluster": 2.0}, {"threads": 48}, {"threads": 2048}])
+def test_fps_refuses_other_cluster_sizes_and_block_sizes(device, kw):
+    with pytest.raises(ValueError, match="cluster|threads"):
+        ops.furthest_point_sample(torch.ones(1, 8, 3, device=device), 4, **kw)
+
+
+def test_fps_forced_cluster_takes_the_plain_version_on_cpu(rng):
+    xyz = torch.from_numpy(_fps_cloud(rng, 2, 100))
+    for c in ops.fps.FPS_CLUSTERS:
+        assert torch.equal(ops.furthest_point_sample(xyz, 16, cluster=c, threads=64),
+                           ops.furthest_point_sample_plain(xyz, 16))
+
+
+# co-resident clusters by size: one where a GPC holds two clusters of 16
+# blocks, one where no cluster of 16 fits
+_ROOMY = {1: 132, 2: 66, 4: 32, 8: 16, 16: 8}
+_TIGHT = {1: 132, 2: 66, 4: 32, 8: 16, 16: 0}
+
+
+@pytest.mark.parametrize("b,n,resident,want", [
+    (8, 40000, _ROOMY, 16),      # SA1: every cluster of 16 resident at once
+    (9, 40000, _ROOMY, 8),       # 9 clusters of 16 would take two waves
+    (8, 40000, _TIGHT, 8),
+    (8, 1024, _ROOMY, 1),        # aggregation: a split would leave blocks too small
+    (8, 4096, _ROOMY, 4),
+    (64, 40000, _ROOMY, 8),      # no one-wave split: the smallest that holds the row
+    (2, 100000, _ROOMY, 16),
+    (2, 100000, _TIGHT, 0),      # no cluster the device holds has room: streaming
+    (2, 140000, _ROOMY, 0),
+])
+def test_fps_cluster_is_the_largest_that_runs_in_one_wave(b, n, resident, want):
+    assert ops.fps_cluster(b, n, resident.__getitem__) == want
 
 
 def _boundary_cloud(rng, b, n, m, r):
