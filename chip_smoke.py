@@ -32,6 +32,7 @@ from spacap3d_tpu_torch import ops
 from spacap3d_tpu_torch.config import SOS_ID, ModelConfig
 from spacap3d_tpu_torch.models import init_spacap
 from spacap3d_tpu_torch.ops import _build
+from spacap3d_tpu_torch.tools.fps_probe import fps_capped
 from spacap3d_tpu_torch.train.step import eval_tail, make_eval_step, to_device_batch
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, dense
@@ -128,7 +129,8 @@ def fps_held(n):
 
 def fps_check(xyz, npoint, what):
     """The kernel at the default C and at every C the device holds, against
-    the plain version: equal indices. Returns the default C and the Cs run."""
+    the plain version: equal indices. Returns the default C, the Cs run and
+    the plain version's indices."""
     want = ops.furthest_point_sample_plain(xyz, npoint)
     b, n, _ = xyz.shape
     auto = ops.fps_default_cluster(torch.cuda.current_device(), b, n)
@@ -140,7 +142,7 @@ def fps_check(xyz, npoint, what):
             bad = torch.nonzero(got != want)[0].tolist()
             raise AssertionError(f"fps {what} N={n} npoint={npoint} cluster={c or auto}: kernel "
                                  f"!= plain, first at (row, step) {bad}")
-    return auto, [auto] + runs[1:]
+    return auto, [auto] + runs[1:], want
 
 
 def fps_launch_row(n, cluster, ptxas):
@@ -155,16 +157,16 @@ def fps_launch_row(n, cluster, ptxas):
 
 def phase_fps():
     """FPS at the main-path shapes, at the default C and every C the device
-    holds (timed: the C sweep), and at a threads sweep; then the tie,
-    ragged, sparse and long-row cases, each index-equal to the plain
-    version."""
+    holds (timed: the C sweep), and over caps on a block's threads at the
+    default C (timed: the block-size sweep); then the tie, ragged, sparse
+    and long-row cases. Every launch is index-equal to the plain version."""
     rows = []
     rng = np.random.RandomState(0)
     ptxas = _build.ptxas_info()
     log("kernels", kernel="fps", block_points=_build.library().spacap_fps_block_points())
     for n, npoint in FPS_SHAPES:
         xyz = torch.from_numpy(fps_input(rng, n)).to(DEV)
-        auto, ran = fps_check(xyz, npoint, "main path")
+        auto, ran, want = fps_check(xyz, npoint, "main path")
         reps = 3 if n > 4096 else 20
         k_ms = cuda_ms(lambda: ops.furthest_point_sample(xyz, npoint), reps=reps)
         p_ms = cuda_ms(lambda: ops.furthest_point_sample_plain(xyz, npoint),
@@ -175,11 +177,14 @@ def phase_fps():
         threads = {}   # at the default C, over caps on a block's threads
         for t in (32, 64, 128, 256, 512, 1024):
             if -(-n // auto) <= t * 32:
+                if not torch.equal(fps_capped(xyz, npoint, auto, t), want):
+                    raise AssertionError(f"fps N={n} npoint={npoint} cluster={auto} "
+                                         f"threads {t}: kernel != plain")
                 info = ops.fps_launch_info(torch.cuda.current_device(), n, auto, t)
                 threads[str(t)] = dict(threads=info["threads"],
                                        points_per_thread=info["points_per_thread"],
-                                       ms=cuda_ms(lambda: ops.furthest_point_sample(
-                                           xyz, npoint, cluster=auto, threads=t), reps=reps))
+                                       ms=cuda_ms(lambda: fps_capped(xyz, npoint, auto, t),
+                                                  reps=reps))
         flops = 9.0 * (npoint - 1) * B * n        # 3 sub, 1 mul, 2 fma, 1 min a point-step
         b_ms, b_by = bound(flops, B * n * 12 + B * npoint * 4)
         row = dict(shape=[B, n, 3], npoint=npoint, max_abs_err=0, ms=k_ms, plain_ms=p_ms,
@@ -197,7 +202,7 @@ def phase_fps():
              ("above the cluster limit", fps_input(rng, limit, b=2), 16)]
     for what, pts, npoint in cases:
         xyz = torch.from_numpy(pts).to(DEV)
-        auto, ran = fps_check(xyz, npoint, what)
+        auto, ran, _ = fps_check(xyz, npoint, what)
         log("kernels", kernel="fps", case=what, shape=list(pts.shape), npoint=npoint,
             cluster=auto, clusters_checked=ran, equal=True)
         if what == "above the cluster limit" and auto != 0:
@@ -577,7 +582,7 @@ def phase_eval_forward():
     summary = {}
     for name in paths:
         med = float(np.median(times[name]))
-        prof = device_profile(lambda: forward(name))
+        prof = device_profile(lambda: forward(name), paths[name]["want"])
         if "device_busy_ms" in prof:
             prof["device_busy_share"] = prof["device_busy_ms"] / (med * 1e3)
         split_ms = {k: float(np.median(v)) for k, v in splits[name].items()}
@@ -599,18 +604,28 @@ def phase_eval_forward():
             "ffn": launches["fused"]["ffn"]}
 
 
-def device_profile(fn):
+def device_profile(fn, want, tries=3):
     """One call of ``fn`` under torch.profiler: the device's busy time (the
     union of its kernel and copy spans), their count, and the kernels with
-    the most device time."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        fn()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in p.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        return {"device_busy": "not measured: the profiler recorded no device events"}
+    the most device time. Each PROFILED kernel's spans must number the
+    launches ``fn`` made (``want``; ``fn`` checks its launch counts); a
+    profile that lost a span is taken again, up to ``tries`` times, and if
+    none is complete no busy time is reported."""
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            fn()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in p.events()
+                       if e.device_type == DeviceType.CUDA)
+        counted = {k: sum(pat in name for _, _, name in spans) for k, pat in PROFILED.items()}
+        if counted == want:
+            break
+        log("profile", incomplete=True, kernel_spans=counted, launches=want,
+            device_spans=len(spans))
+    else:
+        return {"device_busy": f"not measured: {tries} profiles each lost a kernel span",
+                "kernel_spans": counted, "launches": want}
     busy_us, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         if e > end:
@@ -621,7 +636,8 @@ def device_profile(fn):
     ours = {k: sum(t for name, t in by_name.items() if pat in name) / 1e3
             for k, pat in PROFILED.items()}
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "device_spans": len(spans), "kernel_device_ms": ours,
+            "device_spans": len(spans), "kernel_spans": counted,
+            "incomplete_profiles": attempt, "kernel_device_ms": ours,
             "top_device_ms": [[name[:90], t / 1e3] for name, t in top]}
 
 

@@ -39,11 +39,9 @@
 //      candidates (20 bytes each) and reduces them itself, so every block
 //      gets the same winner and its coordinates with no second block
 //      barrier and no global read. Rank 0 writes the index.
-// It replaces one cluster barrier a step (barrier.cluster.arrive.release /
-// wait.acquire after plain st.shared::cluster stores), which a build with
-// -DSPACAP_FPS_CLUSTER_BARRIER still makes; tools/fps_probe.py times the
-// two (PERF.md). A block waits for the data it needs, not for every thread
-// of the cluster.
+// A block waits for the data it needs, not for every thread of the
+// cluster: one cluster barrier a step after plain st.shared::cluster
+// stores measured 0.35 us a step slower on the H100 (PERF.md).
 // Why the slots and mbarriers may be reused every other step: a block
 // writes parity s & 1 of a peer again only at step s + 2, after it has
 // received the step s + 1 candidates of every rank, the peer's among them;
@@ -70,6 +68,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxCluster = 16;     // non-portable above 8
 constexpr int kBlockPoints = 8192;  // the most points one block holds (K x threads)
 constexpr int kMinThreads = 128;    // the fewest threads a block gets by default
+constexpr int kDefaultPerThread = 10;   // the points a thread aims at by default
 constexpr int kCandBytes = 20;      // a candidate: key, index, x, y (16 bytes) and z
 constexpr int kStreamThreads = 1024;
 
@@ -135,19 +134,6 @@ __device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
       "r"(__float_as_uint(v)), "r"(bar)
       : "memory");
 }
-#ifdef SPACAP_FPS_CLUSTER_BARRIER
-// The exchange this kernel's design replaced, for measurements
-// (tools/fps_probe.py): plain stores into the peer's slots, then one
-// cluster barrier a step.
-__device__ __forceinline__ void st_cluster(uint32_t addr, int4 v) {
-  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x),
-               "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
-}
-#endif
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
@@ -271,9 +257,7 @@ fps_kernel_cluster(const float* __restrict__ xyz, int n, int npoint, int cluster
     warp_best(key, idx);
     if (lane == 0) warp_best_of[par][warp] = make_int2(key, idx);
     const uint32_t bar = bar0 + 8 * par;
-#ifndef SPACAP_FPS_CLUSTER_BARRIER
     if (tid == 0) mbar_expect_tx(bar, cluster * kCandBytes);
-#endif
     __syncthreads();
     // 3. the block's, to every rank
     if (warp == 0) {
@@ -284,23 +268,13 @@ fps_kernel_cluster(const float* __restrict__ xyz, int n, int npoint, int cluster
       const float4 c = sxyz[idx - lo];
       if (lane < cluster) {
         const int4 ka = make_int4(key, idx, __float_as_int(c.x), __float_as_int(c.y));
-#ifdef SPACAP_FPS_CLUSTER_BARRIER
-        st_cluster(par ? to_a1 : to_a0, ka);
-        st_cluster(par ? to_z1 : to_z0, c.z);
-#else
         st_async(par ? to_a1 : to_a0, ka, to_bar + 8 * par);
         st_async(par ? to_z1 : to_z0, c.z, to_bar + 8 * par);
-#endif
       }
     }
     // 4. the cluster's, from the C candidates
-#ifdef SPACAP_FPS_CLUSTER_BARRIER
-    cluster_arrive_release();
-    cluster_wait_acquire();
-#else
     mbar_wait(bar, (phases >> par) & 1u);
     phases ^= 1u << par;
-#endif
     const int4 a = lane < cluster ? cand_a[par][lane] : make_int4(INT_MIN, INT_MAX, 0, 0);
     const float z = lane < cluster ? cand_z[par][lane] : 0.0f;
     key = a.x;
@@ -339,13 +313,14 @@ int dynamic_smem(int threads, int k) { return threads * k * static_cast<int>(siz
 // `threads_cap` threads: the smallest K whose block of ceil(per_block / K)
 // threads (rounded up to a warp) fits both caps. False if none does. By
 // default (threads_cap 0) the cap is the fewest threads that hold the
-// points at K = 32, and no fewer than kMinThreads: a step is a chain of
-// barriers and reductions, and small blocks were the fastest on the H100
-// (PERF.md).
+// points at K = kDefaultPerThread, and no fewer than kMinThreads: more
+// warps lengthen the step's barrier and reductions, more points a thread
+// its serial update. On the H100 that gave the fastest block at both
+// main-path shapes (256 threads for 2,500 points, 128 for 1,024; PERF.md).
 bool pick_variant(int per_block, int threads_cap, int* variant, int* threads) {
   if (threads_cap <= 0) {
-    const int fewest = ((per_block + 31) / 32 + 31) / 32 * 32;
-    threads_cap = fewest > kMinThreads ? fewest : kMinThreads;
+    const int t = ((per_block + kDefaultPerThread - 1) / kDefaultPerThread + 31) / 32 * 32;
+    threads_cap = t > kMinThreads ? t : kMinThreads;
   }
   for (int v = 0; v < kVariants; ++v) {
     const int k = kPerThread[v];

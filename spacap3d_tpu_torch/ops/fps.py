@@ -66,6 +66,17 @@ def fps_cluster(b: int, n: int, resident: Callable[[int], int]) -> int:
     return max(wave) if wave else min(held)
 
 
+def _library() -> ctypes.CDLL:
+    """The kernel library, whose blocks must hold ``FPS_BLOCK_POINTS``
+    points: the rules above pick C and the kernel from that constant."""
+    lib = _build.library()
+    held = lib.spacap_fps_block_points()
+    if held != FPS_BLOCK_POINTS:
+        raise RuntimeError(f"fps: csrc/fps.cu holds {held} points a block, "
+                           f"ops/fps.py assumes {FPS_BLOCK_POINTS}")
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def fps_launch_info(device_index: int, n: int, cluster: int, threads: int = 0) -> dict:
     """The cluster kernel's launch for a row of n points over ``cluster``
@@ -74,8 +85,7 @@ def fps_launch_info(device_index: int, n: int, cluster: int, threads: int = 0) -
     a block (bytes) and co-resident clusters."""
     out = [ctypes.c_int() for _ in range(4)]
     with torch.cuda.device(device_index):
-        err = _build.library().spacap_fps_launch_info(n, cluster, threads,
-                                                      *map(ctypes.byref, out))
+        err = _library().spacap_fps_launch_info(n, cluster, threads, *map(ctypes.byref, out))
     _build.check(err, "fps launch info")
     return dict(zip(("threads", "points_per_thread", "shared_memory", "max_active_clusters"),
                     (o.value for o in out)))
@@ -89,19 +99,14 @@ def fps_default_cluster(device_index: int, b: int, n: int) -> int:
         device_index, n, c)["max_active_clusters"])
 
 
-def furthest_point_sample(xyz: torch.Tensor, npoint: int, *, cluster: Optional[int] = None,
-                          threads: Optional[int] = None) -> torch.Tensor:
+def furthest_point_sample(xyz: torch.Tensor, npoint: int, *,
+                          cluster: Optional[int] = None) -> torch.Tensor:
     """(B, N, 3) f32 contiguous -> (B, npoint) int32. On CUDA, ``cluster``
-    (1, 2, 4, 8 or 16) forces the blocks a row is split over and ``threads``
-    (a multiple of 32 up to 1024) caps a block's threads; by default
-    ``fps_default_cluster`` picks C from B, N and the device, and the kernel
-    the fewest threads (at least 128) that hold a block's points. Only
-    measurements pass either."""
+    (1, 2, 4, 8 or 16) forces the blocks a row is split over, which only
+    measurements need; by default ``fps_default_cluster`` picks C from B, N
+    and the device."""
     if cluster is not None and (not isinstance(cluster, int) or cluster not in FPS_CLUSTERS):
         raise ValueError(f"fps: cluster = {cluster!r} must be one of {FPS_CLUSTERS}")
-    if threads is not None and (not isinstance(threads, int) or threads % 32
-                                or not 32 <= threads <= 1024):
-        raise ValueError(f"fps: threads = {threads!r} must be a multiple of 32 up to 1024")
     if xyz.dim() != 3 or xyz.shape[-1] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"fps wants (B, N, 3) float32, got {tuple(xyz.shape)} {xyz.dtype}")
     if xyz.device.type == "cpu":
@@ -116,14 +121,14 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int, *, cluster: Optional[i
     elif -(-n // cluster) > FPS_BLOCK_POINTS:
         raise ValueError(f"fps: a cluster of {cluster} blocks holds at most "
                          f"{cluster * FPS_BLOCK_POINTS} points, not {n}")
-    lib = _build.library()
+    lib = _library()
     with torch.cuda.device(xyz.device):
         out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
         scratch = None
         if cluster == 0:    # the streaming kernel's min distances
             scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
         err = lib.spacap_fps(
-            xyz.data_ptr(), b, n, npoint, cluster, threads or 0,
+            xyz.data_ptr(), b, n, npoint, cluster, 0,
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(xyz.device).cuda_stream)
     _build.check(err, "fps")

@@ -4,18 +4,15 @@
 
 Prints JSON lines:
 
-* ``exchange``: the kernel's device time (ms) and µs a step at the two
-  main-path shapes (8 x 40000 -> 2048, 8 x 1024 -> 256), at each cluster
-  size the device holds and at caps of 128, 256 and 1024 threads a block,
-  for the kernel library (candidates through st.async and an mbarrier) and
-  for a build of ``csrc/fps.cu`` with ``SPACAP_FPS_CLUSTER_BARRIER`` (plain
-  stores into the peers' shared memory and one cluster barrier a step),
-  timed in turns; both must give the plain version's indices.
+* ``caps``: the kernel's device time (ms) and µs a step at the two
+  main-path shapes (8 x 40000 -> 2048, 8 x 1024 -> 256), at the default
+  cluster size and at caps of 128, 256 and 512 threads a block, timed in
+  turns (128, 256, 512, 512, 256, 128, twice); every cap must give the
+  plain version's indices.
 * ``share``: µs a step against the points each block holds (N / C), at
   C = 1, 4 and 16 over 8 rows and 512 steps: the step's fixed cost
   (barrier, reductions, exchange) and the cost of a block's points.
 """
-import ctypes
 import json
 import subprocess
 import sys
@@ -28,62 +25,43 @@ from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.tools.ffn_probe import device_us
 
 B = 8
+CAPS = (128, 256, 512)
 
 
-def barrier_library():
-    """fps.cu built with one cluster barrier a step, beside the kernel library."""
-    out = _build.BUILD_DIR / "libspacap_fps_barrier.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
-                    "-fPIC", "-shared", "-DSPACAP_FPS_CLUSTER_BARRIER",
-                    str(_build.CSRC / "fps.cu"), "-o", str(out)], check=True)
-    lib = ctypes.CDLL(str(out))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.spacap_fps.argtypes = [vp, i32, i32, i32, i32, i32, vp, vp, vp]
-    lib.spacap_fps.restype = i32
-    return lib
+def fps_capped(xyz, npoint, cluster, threads):
+    """The cluster kernel over ``cluster`` blocks of at most ``threads``
+    threads, through the C entry point (the wrapper takes no block size)."""
+    b, n, _ = xyz.shape
+    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    _build.check(_build.library().spacap_fps(
+        xyz.data_ptr(), b, n, npoint, cluster, threads, None, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), f"fps (cluster {cluster}, threads {threads})")
+    return out
 
 
 def cloud(rng, b, n):
     return torch.from_numpy((rng.rand(b, n, 3) * 6.0).astype(np.float32)).cuda()
 
 
-def exchange(rng, lib):
+def caps(rng):
     dev = torch.cuda.current_device()
     for n, npoint in ((40000, 2048), (1024, 256)):
         xyz = cloud(rng, B, n)
         want = ops.furthest_point_sample_plain(xyz, npoint)
-        out = torch.empty_like(want)
-
-        def barrier_call(c, t):
-            _build.check(lib.spacap_fps(xyz.data_ptr(), B, n, npoint, c, t, None, out.data_ptr(),
-                                        torch.cuda.current_stream().cuda_stream),
-                         "fps (barrier build)")
-        for c in ops.fps.FPS_CLUSTERS:
-            if -(-n // c) > ops.fps.FPS_BLOCK_POINTS:
-                continue
-            for t in (128, 256, 1024):
-                if -(-n // c) > 32 * t:
-                    continue
-                info = ops.fps_launch_info(dev, n, c, t)
-                if info["max_active_clusters"] < 1:
-                    continue
-                barrier_call(c, t)
-                torch.cuda.synchronize()
-                equal = (torch.equal(out, want) and torch.equal(
-                    ops.furthest_point_sample(xyz, npoint, cluster=c, threads=t), want))
-                if not equal:
-                    raise AssertionError(f"fps N={n} C={c} threads {t}: != plain")
-                times = {"mbarrier": [], "cluster_barrier": []}
-                for name in ("mbarrier", "cluster_barrier", "cluster_barrier", "mbarrier"):
-                    fn = ((lambda: ops.furthest_point_sample(xyz, npoint, cluster=c, threads=t))
-                          if name == "mbarrier" else (lambda: barrier_call(c, t)))
-                    times[name].append(device_us(fn, reps=3 if n > 4096 else 20) / 1e3)
-                ms = {k: float(np.mean(v)) for k, v in times.items()}
-                print(json.dumps({"probe": "exchange", "b": B, "n": n, "npoint": npoint,
-                                  "cluster": c, "threads_cap": t, **info, "ms": ms,
-                                  "us_per_step": {k: v * 1e3 / (npoint - 1) for k, v in ms.items()},
-                                  "equal": True}), flush=True)
+        c = ops.fps_default_cluster(dev, B, n)
+        for t in CAPS:
+            if not torch.equal(fps_capped(xyz, npoint, c, t), want):
+                raise AssertionError(f"fps N={n} C={c} threads {t}: != plain")
+        times = {t: [] for t in CAPS}
+        for t in (CAPS + CAPS[::-1]) * 2:
+            times[t].append(device_us(lambda: fps_capped(xyz, npoint, c, t),
+                                      reps=3 if n > 4096 else 20) / 1e3)
+        for t in CAPS:
+            info = ops.fps_launch_info(dev, n, c, t)
+            print(json.dumps({"probe": "caps", "b": B, "n": n, "npoint": npoint, "cluster": c,
+                              "threads_cap": t, **info, "ms": times[t],
+                              "us_per_step": float(np.mean(times[t])) * 1e3 / (npoint - 1),
+                              "equal": True}), flush=True)
 
 
 def share(rng):
@@ -107,7 +85,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"probe": "device", "nvidia_smi": smi, "torch": torch.__version__}), flush=True)
     rng = np.random.RandomState(0)
-    exchange(rng, barrier_library())
+    caps(rng)
     share(rng)
     return 0
 

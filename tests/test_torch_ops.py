@@ -121,15 +121,25 @@ def test_fps_partition_over_ranks_matches_jax(rng, c, case):
 @pytest.mark.parametrize("kw", [{"cluster": 0}, {"cluster": 3}, {"cluster": 32},
                                 {"cluster": 2.0}, {"threads": 48}, {"threads": 2048}])
 def test_fps_refuses_other_cluster_sizes_and_block_sizes(device, kw):
-    with pytest.raises(ValueError, match="cluster|threads"):
+    """A C outside FPS_CLUSTERS is refused; the wrapper takes no block size
+    (measurements cap it through the C entry point)."""
+    with pytest.raises(TypeError if "threads" in kw else ValueError, match="cluster|threads"):
         ops.furthest_point_sample(torch.ones(1, 8, 3, device=device), 4, **kw)
 
 
 def test_fps_forced_cluster_takes_the_plain_version_on_cpu(rng):
     xyz = torch.from_numpy(_fps_cloud(rng, 2, 100))
     for c in ops.fps.FPS_CLUSTERS:
-        assert torch.equal(ops.furthest_point_sample(xyz, 16, cluster=c, threads=64),
+        assert torch.equal(ops.furthest_point_sample(xyz, 16, cluster=c),
                            ops.furthest_point_sample_plain(xyz, 16))
+
+
+def test_fps_block_points_match_the_kernel_source():
+    """ops/fps.py picks C and the kernel from the points a block holds; the
+    kernel's constant must be the same (the wrapper also checks the built
+    library on the card)."""
+    src = (_build.CSRC / "fps.cu").read_text()
+    assert f"constexpr int kBlockPoints = {ops.fps.FPS_BLOCK_POINTS};" in src
 
 
 # co-resident clusters by size: one where a GPC holds two clusters of 16
