@@ -256,87 +256,126 @@ def bf16_uniform(rng, shape, limit):
         DEV).bfloat16()
 
 
-def gen_check(x, w, b, vocab):
+def gen_check(x, packed, cluster=None):
     """The kernel's indices against the plain f32 logits. Two f32 sums of
     the same d exact bf16 products in other orders differ by at most
     d * 2^-23 * S each (S = the row's largest sum of |terms| over the
     columns; 2^-23 allows the tensor cores' truncating accumulation), so a
     row whose top-2 plain logits are further apart than 2 d 2^-23 S must
     give the plain index, and every row must pick a column within that
-    bound of the max. ``max_abs_err`` is the largest such shortfall."""
-    got = ops.generator_argmax(x, w, b, vocab)
-    logits = x.float() @ w[:vocab].float().t() + b[:vocab].float()
+    bound of the max. ``max_abs_err`` is the largest such shortfall. Two
+    calls on the same inputs must give the same indices."""
+    got = ops.generator_argmax(x, packed, cluster=cluster)
+    again = ops.generator_argmax(x, packed, cluster=cluster)
+    w, b, vocab = packed.w, packed.b, packed.vocab
+    logits = x.float() @ w.float().t() + b.float()
     want = torch.argmax(logits, dim=-1)
-    s = (x.float().abs() @ w[:vocab].float().abs().t() + b[:vocab].float().abs()).amax(-1)
+    s = (x.float().abs() @ w.float().abs().t() + b.float().abs()).amax(-1)
     tol = 2 * x.shape[1] * 2.0 ** -23 * s
     top2 = logits.topk(2, dim=-1).values
     near = (top2[:, 0] - top2[:, 1]) <= tol
     short = top2[:, 0] - logits.gather(1, got.clamp(0, vocab - 1)[:, None])[:, 0]
     torch.cuda.synchronize()
+    what = f"generator_argmax R={x.shape[0]} vocab={vocab} cluster={cluster}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two calls differ")
     if int(got.max()) >= vocab or int(got.min()) < 0:
-        raise AssertionError(f"generator_argmax vocab={vocab}: index out of range")
+        raise AssertionError(f"{what}: index out of range")
     if bool((short > tol).any()) or bool((got != want)[~near].any()):
-        raise AssertionError(f"generator_argmax R={x.shape[0]} vocab={vocab}: kernel picks a "
-                             f"column below the max by more than the reassociation bound")
+        raise AssertionError(f"{what}: kernel picks a column below the max by more than the "
+                             f"reassociation bound")
     return {"max_abs_err": float(short.max()), "rows": int(x.shape[0]),
-                 "rows_in_tie_bound": int(near.sum()),
-                 "rows_index_differs": int((got != want).sum()),
-                 "tie_bound_max": float(tol.max())}
+            "rows_in_tie_bound": int(near.sum()),
+            "rows_index_differs": int((got != want).sum()),
+            "tie_bound_max": float(tol.max()), "two_calls_equal": True}
 
 
-def gen_exact_case(rng):
+def gen_launch(packed, cluster):
+    return ops.generator_launch_info(torch.cuda.current_device(), packed.d, packed.vocab, cluster)
+
+
+def gen_held(packed):
+    """The cluster sizes 1-4 the device can run the generator kernel at."""
+    return [s for s in range(1, 5) if gen_launch(packed, s)["max_active_clusters"] >= 1]
+
+
+def gen_exact_case(rng, vocab, ties, clusters=None):
     """Exact arithmetic: x on a 2^-6 grid in [-1, 1], w on a 2^-4 grid, so
     every logit is a multiple of 2^-10 below 2^10 and any summation order
-    gives the same f32 value. Columns 37, 53 (another warp) and 677
-    (another tile) are equal and lead on most rows: the lowest must win.
-    All real biases are -16, so a padded column (logit 0) would win if it
-    were a candidate; vocab 1000 is no multiple of 16 or of 128."""
-    r, vocab, d = 100, 1000, D_MODEL
+    gives the same f32 value. The columns ``ties`` are equal and lead on
+    most rows: the lowest must win. All real biases are -16, so a padded
+    column (logit 0) would win if it were a candidate. At every cluster
+    size in ``clusters`` (by default each of 1-4 the device holds), twice,
+    equal to the plain index."""
+    r, d = 100, D_MODEL
     x = np.round(rng.uniform(-1, 1, (r, d)) * 64) / 64
     x[:, 0] = 255 / 64
     w = np.round(rng.uniform(-0.125, 0.125, (vocab, d)) * 16) / 16
     w[:, 0] = 0.0
-    w[37, 0] = 2.0
-    w[[53, 677]] = w[37]
+    w[ties[0], 0] = 2.0
+    w[ties[1:]] = w[ties[0]]
     b = np.full((vocab,), -16.0)
     to = lambda a: torch.from_numpy(a.astype(np.float32)).to(DEV).bfloat16()  # noqa: E731
-    wp, bp = ops.pad_generator(to(w), to(b))
-    got = ops.generator_argmax(to(x), wp, bp, vocab)
-    want = ops.generator_argmax_plain(to(x), wp, bp, vocab)
-    torch.cuda.synchronize()
-    lead = int((want == 37).sum())
-    res = {"rows": r, "vocab": vocab, "rows_led_by_tie": lead,
-           "equal": bool(torch.equal(got, want)), "max_index": int(got.max())}
+    xt, packed = to(x), ops.pack_generator(to(w), to(b))
+    want = ops.generator_argmax_plain(xt, packed.w, packed.b, vocab)
+    lead = int((want == ties[0]).sum())
+    res = {"rows": r, "vocab": vocab, "chunks": packed.chunks, "ties": ties,
+           "rows_led_by_tie": lead, "clusters": {}}
+    for s in clusters or gen_held(packed):
+        got = ops.generator_argmax(xt, packed, cluster=s)
+        again = ops.generator_argmax(xt, packed, cluster=s)
+        torch.cuda.synchronize()
+        res["clusters"][str(s)] = {
+            "equal": bool(torch.equal(got, want)), "two_calls_equal": bool(torch.equal(got, again)),
+            "other_tie_won": bool(torch.isin(got, torch.tensor(ties[1:], device=DEV)).any()),
+            "max_index": int(got.max())}
     log("kernels", kernel="generator_argmax", case="exact ties and padding", **res)
-    if not res["equal"] or lead < r // 2 or bool(((got == 53) | (got == 677)).any()):
+    bad = [s for s, c in res["clusters"].items()
+           if not (c["equal"] and c["two_calls_equal"]) or c["other_tie_won"]]
+    if bad or lead < r // 2:
         raise AssertionError(f"generator_argmax exact case: {res}")
 
 
 def phase_decode_kernels():
     """The fused decode kernels against their plain versions at the main-path
     shapes, a ragged R and vocab, and exact ties; timed beside the plain
-    version and cuBLAS's bf16 composite."""
+    version and cuBLAS's bf16 composite. At the main-path shape the
+    generator kernel also runs at the other cluster sizes 1-4."""
     results = {"generator_argmax": [], "ffn": []}
     rng = np.random.RandomState(2)
     d = D_MODEL
+    dev = torch.cuda.current_device()
+    ptxas = _build.ptxas_info()
     for r, vocab, main in GEN_SHAPES:
         # the final-norm hidden, and the xavier / torch-default init ranges
         x = torch.from_numpy(rng.randn(r, d).astype(np.float32)).to(DEV).bfloat16()
-        w, b = ops.pad_generator(bf16_uniform(rng, (vocab, d), np.sqrt(6 / (d + vocab))),
-                                 bf16_uniform(rng, (vocab,), 1 / np.sqrt(d)))
-        row = gen_check(x, w, b, vocab)
-        wv, bv = w[:vocab], b[:vocab]
+        packed = ops.pack_generator(bf16_uniform(rng, (vocab, d), np.sqrt(6 / (d + vocab))),
+                                    bf16_uniform(rng, (vocab,), 1 / np.sqrt(d)))
+        w, b = packed.w, packed.b
+        cluster = ops.generator_default_cluster(dev, r, d, vocab)
+        name = f"gen_argmax_kernelILi{-(-d // 64)}ELi{ops.decode.GEN_CHUNK}E"
+        row = gen_check(x, packed)
         row.update(
-            shape=[r, d, vocab], main_path=main,
-            ms=cuda_ms(lambda: ops.generator_argmax(x, w, b, vocab), reps=20),
+            shape=[r, d, vocab], main_path=main, cluster=cluster, chunk=ops.decode.GEN_CHUNK,
+            **gen_launch(packed, cluster), ptxas=next(v for k, v in ptxas.items() if name in k),
+            ms=cuda_ms(lambda: ops.generator_argmax(x, packed), reps=20),
             plain_ms=cuda_ms(lambda: ops.generator_argmax_plain(x, w, b, vocab), reps=20),
-            library_ms=cuda_ms(lambda: torch.argmax(torch.addmm(bv, x, wv.t()), -1), reps=20),
+            library_ms=cuda_ms(lambda: torch.argmax(torch.addmm(b, x, w.t()), -1), reps=20),
             library="composite: torch.argmax(torch.addmm(b, x, W^T)) in bf16")
+        if main:   # the vocab split against the other cluster sizes
+            for s in gen_held(packed):
+                if s != cluster:
+                    row[f"cluster_{s}"] = dict(
+                        gen_check(x, packed, cluster=s), **gen_launch(packed, s),
+                        ms=cuda_ms(lambda: ops.generator_argmax(x, packed, cluster=s), reps=20))
         row["bound_ms"], row["bound_by"] = bound(
             2.0 * r * d * vocab, 2 * (r * d + vocab * d + vocab) + 8 * r, PEAK_BF16_FLOPS)
         log("kernels", kernel="generator_argmax", **row)
         results["generator_argmax"].append(row)
-    gen_exact_case(rng)
+    # ties across lanes, chunks and ranks; vocab 1000 leaves the last chunk
+    # ragged; vocab 200 is 2 chunks, so at 4 ranks ranks 0 and 2 own none
+    gen_exact_case(rng, 1000, [37, 39, 53, 130, 677])
+    gen_exact_case(rng, 200, [37, 150], clusters=[4])
     results["ffn"] = ffn_rows(rng)
     return results
 
@@ -720,9 +759,11 @@ def main() -> int:
                 "shape", "npoint", "cluster", "threads", "points_per_thread", "shared_memory",
                 "max_active_clusters", "registers", "spill_stores", "spill_loads",
                 "us_per_step")} for r in main]
-        if name == "ffn":   # the split and the build of the main-path launch
+        if name in ("generator_argmax", "ffn"):   # the split and build of the main-path launch
             kernels[-1].update({k: main[0][k] for k in (
                 "cluster", "stages", "dynamic_smem", "max_active_clusters", "ptxas")})
+        if name == "generator_argmax":
+            kernels[-1]["chunk"] = main[0]["chunk"]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,19 +1,18 @@
 // Fused greedy-decode kernels on Hopper (sm_90a): the generator's argmax and
 // the position-wise FFN, each one launch with its intermediate kept on chip.
 //
-// gen_argmax_kernel multiplies on the tensor cores through nvcuda::wmma
-// (16x16x16 fragments, f32 accumulators), reading the weights in the port's
-// (out, in) layout straight from global memory. ffn_kernel issues wgmma
-// (m64n64k16) on weights that ops/decode.py::pack_ffn laid out once per decode
-// as the shared-memory image the wgmma descriptors read, brought in by bulk
-// asynchronous copies. No library GEMM is called.
+// Both issue wgmma on weights that ops/decode.py laid out once per decode
+// (pack_generator, pack_ffn) as the shared-memory image the wgmma descriptors
+// read, brought in chunk by chunk by bulk asynchronous copies, and both split
+// their weights over a thread-block cluster. No library GEMM is called.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "per_device.cuh"
 
 #ifdef SPACAP_FFN_TIMELINE
 // Diagnostic build only (spacap3d_tpu_torch/tools/ffn_probe.py): thread 0 of
@@ -38,127 +37,13 @@ __device__ unsigned long long g_ffn_timeline[kTimelineBlocks * kTimelineMarks];
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 namespace cg = cooperative_groups;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 32;               // rows of x per block: two 16-row fragments
-constexpr int kTile = kWarps * 16;      // columns per tile: one 16-column fragment a warp
-constexpr int kPad = 8;                 // bf16 row padding of the shared tiles
-constexpr int kTileLd = kTile + 8;      // f32 staging row: 136 = 8 mod 32 banks
 constexpr int kMaxD = 256;
-
-// Rows [row0, row0 + kRows) of x (r, d) into shared memory (row stride d + kPad),
-// zero past row r. d % 16 == 0 and x 16-byte aligned, so rows move as uint4.
-__device__ __forceinline__ void load_x_tile(const bf16* __restrict__ x, int r, int d,
-                                            int row0, bf16* xs) {
-  const int vec_per_row = d / 8;
-  for (int v = threadIdx.x; v < kRows * vec_per_row; v += kThreads) {
-    const int rr = v / vec_per_row, cc = (v % vec_per_row) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + rr < r)
-      val = *reinterpret_cast<const uint4*>(x + static_cast<long long>(row0 + rr) * d + cc);
-    *reinterpret_cast<uint4*>(xs + rr * (d + kPad) + cc) = val;
-  }
-}
-
-// (value, index) order of the argmax: a larger value wins, an equal value with
-// a lower index wins (torch.argmax / jnp.argmax: the first maximum).
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-// Replaces spacap3d_tpu/ops/decode_pallas.py::generator_argmax (_gen_argmax_kernel):
-// out[i] = argmax_j (x[i] . w[j] + b[j]) over j < vocab, f32 accumulation, the
-// bias added in f32 after the product, first maximum on ties; the (r, vocab)
-// logits never reach device memory.
-//
-// Bound on the H100: operations. 2 r d vocab flops (2.37 GFLOP at r 2048,
-// d 128, vocab 4528) are 2.4 us at the 989 TFLOP/s bf16 tensor-core rate; the
-// bytes (x, w, b once, the indices) are 1.7 MB, 0.5 us at 3.35 TB/s.
-// Design: one block per 32 rows walks the vocab in 128-column tiles; each of
-// 8 warps multiplies the shared x tile by one 16-column fragment of w, the
-// tile's f32 logits go through shared memory, and each thread keeps a running
-// (value, index) over a fixed column set of its row, compared lexicographically
-// so that the visiting order cannot change the winner. Columns >= vocab are
-// never candidates. Every block reads all of w from L2 (64 blocks at r 2048);
-// the blocks fill half the SMs and issue wmma, not wgmma: both are for later.
-__global__ void __launch_bounds__(kThreads)
-gen_argmax_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                  const bf16* __restrict__ b, int r, int d, int vocab, long long* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);                                   // kRows x (d + kPad)
-  float* ls = reinterpret_cast<float*>(smem + kRows * (d + kPad) * sizeof(bf16));  // kRows x kTileLd
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRows;
-  load_x_tile(x, r, d, row0, xs);
-  __syncthreads();
-
-  // scan ownership: 8 threads a row, thread `part` takes columns part, part + 8, ...
-  const int srow = threadIdx.x >> 3, part = threadIdx.x & 7;
-  float best = -CUDART_INF_F;
-  int best_idx = 0;
-  for (int col0 = 0; col0 < vocab; col0 += kTile) {
-    const int cb = col0 + warp * 16;
-    if (cb < vocab) {  // w holds rows up to vocab rounded up to 16: the fragment is in bounds
-      FragC acc[2];
-      wmma::fill_fragment(acc[0], 0.0f);
-      wmma::fill_fragment(acc[1], 0.0f);
-      const bf16* wp = w + static_cast<long long>(cb) * d;
-#pragma unroll 4
-      for (int k = 0; k < d; k += 16) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, wp + k, d);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          FragA fa;
-          wmma::load_matrix_sync(fa, xs + i * 16 * (d + kPad) + k, d + kPad);
-          wmma::mma_sync(acc[i], fa, fb, acc[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::store_matrix_sync(ls + i * 16 * kTileLd + warp * 16, acc[i], kTileLd,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int c = part; c < kTile; c += 8) {
-      const int col = col0 + c;
-      if (col < vocab) {
-        const float v = ls[srow * kTileLd + c] + __bfloat162float(b[col]);
-        if (better(v, col, best, best_idx)) {
-          best = v;
-          best_idx = col;
-        }
-      }
-    }
-    __syncthreads();
-  }
-  // the 8 threads of a row are 8 neighbouring lanes
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, best_idx, off);
-    if (better(ov, oi, best, best_idx)) {
-      best = ov;
-      best_idx = oi;
-    }
-  }
-  if (part == 0 && row0 + srow < r) out[row0 + srow] = best_idx;
-}
-
-int shared_bytes_gen(int d) {
-  return kRows * (d + kPad) * static_cast<int>(sizeof(bf16)) + kRows * kTileLd * 4;
-}
 
 bool bad_shape(int r, int d) { return r <= 0 || d <= 0 || d % 16 != 0 || d > kMaxD; }
 
-// ------------------------------------------------------------------- ffn
+// ------------------------------------------------------- shared machinery
 //
 // Shared-memory images. A wgmma operand is read K-major without swizzle
 // (descriptor layout type 0): the matrix is cut into core matrices of 8 rows
@@ -166,57 +51,18 @@ bool bad_shape(int r, int d) { return r <= 0 || d <= 0 || d % 16 != 0 || d > kMa
 // at byte 16 i); core (i, j), rows 8i.. and K columns 8j.., sits at byte
 // 128 (i * K / 8 + j). So the leading byte offset (the next core along K) is
 // 128 and the stride byte offset (the next 8 rows) is 16 K; one k16 step
-// advances the start address by 256 bytes. ops/decode.py::pack_ffn writes W1
-// and W2 in this layout, chunk by chunk, and the kernel writes the x tile in it.
-namespace ffn {
+// advances the start address by 256 bytes. ops/decode.py::pack_generator and
+// pack_ffn write the weights in this layout, chunk by chunk, and the kernels
+// write the x tile in it.
 
 constexpr int kThreads = 128;      // one warpgroup: it issues the copies and the wgmma
 constexpr int kRows = 64;          // rows of x a block: the wgmma M
-constexpr int kChunk = 64;         // d_ff columns a chunk: the first product's wgmma N
 constexpr int kMaxStages = 4;
 constexpr int kMaxCluster = 8;     // the portable cluster size
 constexpr int kSmemLimit = 232448; // 227 KB of dynamic shared memory a block
 constexpr int kHead = 128;         // the ring's mbarriers; the tiles start at byte 128
 
 __host__ __device__ constexpr int x_bytes(int dp) { return kRows * dp * 2; }
-// one chunk of the packed image: W1 rows (kChunk x dp), W2 columns (dp x kChunk),
-// then b1 (kChunk f32)
-__host__ __device__ constexpr int w_bytes(int dp) { return kChunk * dp * 2; }
-__host__ __device__ constexpr int stage_bytes(int dp) { return 2 * w_bytes(dp) + kChunk * 4; }
-__host__ __device__ constexpr int part_ld(int dp) { return dp + 8; }   // f32 row: 8 banks apart row to row
-// rows of the 64-row tile that each of `cluster` blocks reduces, at most
-__host__ __device__ constexpr int share_rows(int cluster) { return (kRows + cluster - 1) / cluster; }
-// the slots a block receives the cluster's partials of its rows in
-__host__ __device__ constexpr int slot_bytes(int dp, int cluster) {
-  return cluster * share_rows(cluster) * part_ld(dp) * 4;
-}
-
-// The launch's shared memory: mbarriers, the x tile, the ring, and the slots
-// of the reduction. The slots lie apart from the ring where that leaves room
-// for 3 stages (or for all the chunks a block takes), so that a block may
-// receive partials while its peers still multiply; else they reuse the ring
-// after a cluster barrier. As many stages as fit, up to 4, and no more than
-// the chunks a block takes: so at least 2 wherever it takes 2 or more, as the
-// pipeline needs.
-int smem_bytes(int nt, int chunks, int cluster, int* stages, int* apart) {
-  const int dp = 64 * nt, per_rank = (chunks + cluster - 1) / cluster;
-  const int fixed = kHead + x_bytes(dp), slots = slot_bytes(dp, cluster);
-  const int cap = per_rank < kMaxStages ? per_rank : kMaxStages;
-  int s = (kSmemLimit - fixed - slots) / stage_bytes(dp);
-  s = s < cap ? s : cap;
-  if (s >= (cap < 3 ? cap : 3)) {
-    *stages = s;
-    *apart = 1;
-    return fixed + s * stage_bytes(dp) + slots;
-  }
-  s = (kSmemLimit - fixed) / stage_bytes(dp);
-  s = s < cap ? s : cap;
-  s = s > 1 ? s : 1;
-  *stages = s;
-  *apart = 0;
-  const int ring = s * stage_bytes(dp);
-  return fixed + (ring > slots ? ring : slots);
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -268,7 +114,7 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int byt
 }
 
 // The address of shared::cta address `addr` in cluster block `rank`'s
-// shared memory, and an 8-byte store there.
+// shared memory, and 8-byte stores there.
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
   uint32_t out;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
@@ -278,11 +124,34 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, float lo, float hi) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(lo), "f"(hi)
                : "memory");
 }
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t lo, uint32_t hi) {
+  asm volatile("st.shared::cluster.v2.b32 [%0], {%1, %2};" ::"r"(addr), "r"(lo), "r"(hi)
+               : "memory");
+}
 // 16 bytes global -> shared; src_bytes 0 writes zeros.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
+}
+
+// Rows [row0, row0 + 64) of x (r, d) into the core-matrix layout at xs
+// (64 x kDp), zero past r and d: 16-byte vector (m, kc) to core (m / 8, kc),
+// row m % 8. Waits for the copies and makes them visible to wgmma.
+template <int kDp>
+__device__ __forceinline__ void load_x_tile(const bf16* __restrict__ x, int r, int d, int row0,
+                                            unsigned char* xs) {
+  constexpr int kVecs = kDp / 8;
+  const uint32_t xa = smem_addr(xs);
+  for (int v = threadIdx.x; v < kRows * kVecs; v += kThreads) {
+    const int m = v / kVecs, kc = v % kVecs;
+    const bool in = row0 + m < r && kc * 8 < d;
+    const bf16* src = in ? x + static_cast<long long>(row0 + m) * d + kc * 8 : x;
+    cp_async16(xa + ((m >> 3) * kVecs + kc) * 128 + (m & 7) * 16, src, in ? 16 : 0);
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+  // generic-proxy writes, read next by wgmma through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -302,26 +171,33 @@ __device__ __forceinline__ void wgmma_wait() {
 // wgmma.fence and after wgmma.wait_group, it keeps every non-wgmma write to
 // them (such as zeroing) out of the span where a wgmma owns them, which ptxas
 // would otherwise answer by serializing the wgmma (C7513 / C7515).
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-#define SPACAP_ACC32(d)                                                                           \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),             \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),     \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define SPACAP_ACC8(d, i)                                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SPACAP_ACC32(d) SPACAP_ACC8(d, 0), SPACAP_ACC8(d, 8), SPACAP_ACC8(d, 16), SPACAP_ACC8(d, 24)
+#define SPACAP_ACC64(d)                                                                  \
+  SPACAP_ACC32(d), SPACAP_ACC8(d, 32), SPACAP_ACC8(d, 40), SPACAP_ACC8(d, 48),          \
+      SPACAP_ACC8(d, 56)
 
 #define SPACAP_D32                                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define SPACAP_D64                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "      \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, " \
+  "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+  "%55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
-// d (64 x 64 f32) = A (64 x 16) B (16 x 64) + (scale_d ? d : 0), A and B bf16
-// in shared memory (K-major descriptors). Thread t of the warpgroup holds
-// d[4j + q] at row 16 (t / 32) + (t % 32) / 4 + 8 (q / 2), column
-// 8 j + 2 (t % 4) + q % 2.
+// d (64 x N f32) = A (64 x 16) B (16 x N) + (scale_d ? d : 0), A and B bf16
+// in shared memory (K-major descriptors), N = 64 or 128. Thread t of the
+// warpgroup holds d[4j + q] at row 16 (t / 32) + (t % 32) / 4 + 8 (q / 2),
+// column 8 j + 2 (t % 4) + q % 2.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -329,6 +205,386 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : SPACAP_ACC32(d)
       : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SPACAP_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SPACAP_ACC64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Issues (one wgmma group) acc (64 x N) = x tile (64 x kDp) . chunk
+// (N x kDp)^T, both K-major images in shared memory.
+template <int kDp, int N>
+__device__ __forceinline__ void issue_chunk(float (&acc)[N / 2], uint32_t xa, uint32_t wa) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < kDp / 16; ++k)
+    wgmma_ss(acc, desc(xa + 256 * k, 128, 16 * kDp), desc(wa + 256 * k, 128, 16 * kDp), k);
+  wgmma_commit();
+}
+
+// The launch of a kernel whose grid is `cluster` blocks along x (the cluster)
+// by one 64-row tile of x along y.
+cudaLaunchConfig_t launch_config(int r, int bytes, int cluster, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(cluster), static_cast<unsigned>((r + kRows - 1) / kRows), 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// (value, index) order of the argmax: a larger value wins, an equal value with
+// a lower index wins (torch.argmax / jnp.argmax: the first maximum).
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// -------------------------------------------------------------- generator
+namespace gen {
+
+constexpr int kChunk = 128;   // vocab columns a chunk: the wgmma N
+constexpr int kNone = 0x7fffffff;   // the index of a candidate that never wins
+
+// one chunk of the packed image: W rows (n x dp), then their n biases in f32
+__host__ __device__ constexpr int w_bytes(int dp, int n) { return n * dp * 2; }
+__host__ __device__ constexpr int stage_bytes(int dp, int n) { return w_bytes(dp, n) + n * 4; }
+
+// The launch's shared memory: mbarriers, the x tile, the ring, and rank 0's
+// (value, index) slots, one a row and rank. As many stages as fit, up to 4,
+// and no more than the chunks a block takes (at least 2 wherever it takes 2
+// or more, as the pipeline needs: 2 stages fit at every d).
+int smem_bytes(int nt, int n, int chunks, int cluster, int* stages) {
+  const int dp = 64 * nt, per_rank = (chunks + cluster - 1) / cluster;
+  const int fixed = kHead + x_bytes(dp) + cluster * kRows * 8;
+  int s = (kSmemLimit - fixed) / stage_bytes(dp, n);
+  s = s < kMaxStages ? s : kMaxStages;
+  s = s < per_rank ? s : per_rank;
+  *stages = s > 1 ? s : 1;
+  return fixed + *stages * stage_bytes(dp, n);
+}
+
+// This thread's (value, index) scan over its columns of one chunk, whose
+// accumulator `acc` is complete: + the chunk's f32 bias, columns >= vocab
+// skipped by index (kMask: the chunk is ragged), the first maximum kept. The
+// thread visits its columns in increasing order (chunk by chunk), so a
+// strictly larger value is the only one that replaces its running best.
+template <int N, bool kMask>
+__device__ __forceinline__ void scan_chunk(const float (&acc)[N / 2], const float* bias, int col,
+                                           int vocab, int quad, float (&best)[2], int (&idx)[2]) {
+  float lv[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  int lj[2] = {0, 0};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * quad);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (kMask && col + 8 * j + q >= vocab) continue;
+        const float v = acc[4 * j + 2 * h + q] + (q ? b.y : b.x);
+        if (v > lv[h]) {
+          lv[h] = v;
+          lj[h] = 8 * j + q;
+        }
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (lv[h] > best[h]) {
+      best[h] = lv[h];
+      idx[h] = col + lj[h];
+    }
+}
+
+// Replaces spacap3d_tpu/ops/decode_pallas.py::generator_argmax
+// (_gen_argmax_kernel, :57): out[i] = argmax_j (x[i] . w[j] + b[j]) over
+// j < vocab, f32 accumulation, the bias added in f32 after the product, first
+// maximum on ties; the (r, vocab) logits never reach device memory.
+//
+// Bound on the H100: operations. 2 r d vocab flops (2.37 GFLOP at r 2048,
+// d 128, vocab 4528) are 2.4 us at the 989 TFLOP/s bf16 tensor-core rate; the
+// bytes (x, w, b once, the indices) are 1.7 MB, 0.5 us at 3.35 TB/s.
+//
+// Design. The first version (64 blocks of 32 rows, wmma fragments loaded
+// from global memory, the logits staged through shared memory as f32 behind
+// two block barriers a tile) filled half the SMs, read w from L2 in the
+// (out, in) layout into every block, and missed the wgmma rate. Here:
+// - A block is one warpgroup and takes 64 rows (the wgmma M) and one
+//   contiguous range of vocab chunks; the S blocks of a thread-block cluster
+//   split the vocab (the wrapper picks the largest S whose clusters all run
+//   in one wave).
+// - The x tile (64 x d_pad) is loaded once with cp.async, zero past r and d,
+//   into the core-matrix layout.
+// - Weights: pack_generator laid w out once per decode, chunk by chunk of N
+//   vocab columns, as this kernel's shared-memory image with the chunk's
+//   biases in f32, so a chunk is one contiguous cp.async.bulk copy into a
+//   ring of 2-4 stages, completed on an mbarrier; the next copies are in
+//   flight while a chunk is multiplied.
+// - Logits: wgmma m64nNk16 over d_pad / 16 k steps, both operands in shared
+//   memory, into one of two accumulator sets in turn: chunk c + 1's group is
+//   issued before chunk c's epilogue, so the tensor cores run while the
+//   warps scan.
+// - Epilogue on the accumulator registers: + bias, columns >= vocab skipped
+//   by index, a running (value, index) for each of the thread's two rows;
+//   at the end the 4 lanes of a row merge with two shuffles.
+// - Merge: each rank stores its 64 (value, index) pairs into rank 0's slots
+//   (st.shared::cluster); after one cluster barrier rank 0 merges them in rank
+//   order by (value, then lower index), a total order, and writes the rows
+//   below r. No atomics: the same bits on every run. A rank that owns no chunk
+//   stores (-inf, kNone), which loses to every real column.
+template <int NT, int N>  // d_pad = 64 NT; N vocab columns a chunk
+__global__ void __launch_bounds__(kThreads, 1)
+gen_argmax_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ image, int r, int d,
+                  int vocab, int chunks, int stages, long long* __restrict__ out) {
+  constexpr int kDp = 64 * NT;
+  constexpr int kStage = stage_bytes(kDp, N);
+  constexpr int kW = w_bytes(kDp, N);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t bars = smem_addr(smem);   // mbarrier s at bars + 8 s
+  unsigned char* xs = smem + kHead;
+  unsigned char* ring = xs + x_bytes(kDp);
+  float2* slots = reinterpret_cast<float2*>(ring + stages * kStage);   // [rank][row]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = blockIdx.y * kRows;
+  const int c0 = rank * chunks / n_ranks;
+  const int n = (rank + 1) * chunks / n_ranks - c0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // this block has started: its peers may store into it once they wait on this
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  __syncthreads();
+  if (tid == 0) {
+    for (int c = 0; c < n && c < stages; ++c) {
+      mbar_expect_tx(bars + 8 * c, kStage);
+      bulk_copy(smem_addr(ring + c * kStage), image + static_cast<long long>(c0 + c) * kStage,
+                kStage, bars + 8 * c);
+    }
+  }
+  load_x_tile<kDp>(x, r, d, row0, xs);
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
+  const uint32_t xa = smem_addr(xs), ring_a = smem_addr(ring);
+  float acc0[N / 2], acc1[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc0[i] = acc1[i] = 0.0f;
+  fence_regs(acc0);   // zeroed before any wgmma is in flight
+  fence_regs(acc1);
+  float best[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  int idx[2] = {kNone, kNone};
+
+  // chunk c's group, once its stage has landed
+  auto issue = [&](float(&acc)[N / 2], int c) {
+    const int st = c % stages;
+    mbar_wait(bars + 8 * st, (c / stages) & 1);
+    issue_chunk<kDp, N>(acc, xa, ring_a + st * kStage);
+  };
+  // chunk c's group is complete: its scan, then its stage takes chunk c + stages
+  auto finish = [&](float(&acc)[N / 2], int c) {
+    fence_regs(acc);
+    const int st = c % stages, col0 = (c0 + c) * N;
+    const float* bias = reinterpret_cast<const float*>(ring + st * kStage + kW);
+    if (col0 + N <= vocab)
+      scan_chunk<N, false>(acc, bias, col0 + 2 * quad, vocab, quad, best, idx);
+    else
+      scan_chunk<N, true>(acc, bias, col0 + 2 * quad, vocab, quad, best, idx);
+    __syncthreads();   // every thread has read the stage's biases
+    if (tid == 0 && c + stages < n) {
+      mbar_expect_tx(bars + 8 * st, kStage);
+      bulk_copy(ring_a + st * kStage, image + static_cast<long long>(c0 + c + stages) * kStage,
+                kStage, bars + 8 * st);
+    }
+  };
+
+  if (n > 0) issue(acc0, 0);
+  for (int c = 0; c < n; c += 2) {
+    if (c + 1 < n) {
+      issue(acc1, c + 1);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    finish(acc0, c);
+    if (c + 1 < n) {
+      if (c + 2 < n) {
+        issue(acc0, c + 2);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      finish(acc1, c + 1);
+    }
+  }
+
+  // the 4 lanes of a row hold its columns 2 quad.. of every 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best[h], off);
+      const int oi = __shfl_xor_sync(0xffffffffu, idx[h], off);
+      if (better(ov, oi, best[h], idx[h])) {
+        best[h] = ov;
+        idx[h] = oi;
+      }
+    }
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");   // every block has started
+  if (quad == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * warp + (lane >> 2) + 8 * h;
+      st_cluster(map_rank(smem_addr(slots + rank * kRows + m), 0), __float_as_uint(best[h]),
+                 static_cast<uint32_t>(idx[h]));
+    }
+  }
+  cluster.sync();   // every rank's pairs have landed in rank 0
+  if (rank != 0 || tid >= kRows || row0 + tid >= r) return;
+  float2 p = slots[tid];
+  float bv = p.x;
+  int bi = __float_as_int(p.y);
+  for (int q = 1; q < n_ranks; ++q) {
+    p = slots[q * kRows + tid];
+    if (better(p.x, __float_as_int(p.y), bv, bi)) {
+      bv = p.x;
+      bi = __float_as_int(p.y);
+    }
+  }
+  out[row0 + tid] = bi;
+}
+
+template <int NT, int N>
+cudaError_t allow_smem() {
+  static PerDevice guard;
+  return guard([] {
+    return cudaFuncSetAttribute(gen_argmax_kernel<NT, N>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  });
+}
+
+template <int NT, int N>
+cudaError_t launch(const bf16* x, const unsigned char* image, int r, int d, int vocab, int chunks,
+                   int cluster, long long* out, cudaStream_t stream) {
+  cudaError_t err = allow_smem<NT, N>();
+  if (err != cudaSuccess) return err;
+  int stages = 0;
+  const int bytes = smem_bytes(NT, N, chunks, cluster, &stages);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(r, bytes, cluster, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, gen_argmax_kernel<NT, N>, x, image, r, d, vocab, chunks, stages,
+                           out);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int NT, int N>
+cudaError_t max_clusters(int bytes, int cluster, int* count) {
+  const cudaError_t err = allow_smem<NT, N>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(kRows, bytes, cluster, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(count, gen_argmax_kernel<NT, N>, &cfg);
+}
+
+bool bad_args(int r, int d, int vocab, int n, int chunks, int cluster) {
+  return bad_shape(r, d) || vocab <= 0 || chunks != (vocab + n - 1) / n || cluster < 1 ||
+         cluster > kMaxCluster;
+}
+
+// The C entry points at chunk width N (kChunk in the library).
+template <int N>
+int argmax_entry(const void* x, const void* image, int r, int d, int vocab, int chunks, int cluster,
+                 long long* out, void* stream) {
+  if (bad_args(r, d, vocab, N, chunks, cluster)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xp = static_cast<const bf16*>(x);
+  const auto* ip = static_cast<const unsigned char*>(image);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch ((d + 63) / 64) {
+    case 1: err = launch<1, N>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
+    case 2: err = launch<2, N>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
+    case 3: err = launch<3, N>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
+    default: err = launch<4, N>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
+  }
+  return static_cast<int>(err);
+}
+
+template <int N>
+int launch_info_entry(int d, int vocab, int chunks, int cluster, int* stages, int* smem,
+                      int* clusters) {
+  if (bad_args(1, d, vocab, N, chunks, cluster)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = (d + 63) / 64;
+  *smem = smem_bytes(nt, N, chunks, cluster, stages);
+  cudaError_t err;
+  switch (nt) {
+    case 1: err = max_clusters<1, N>(*smem, cluster, clusters); break;
+    case 2: err = max_clusters<2, N>(*smem, cluster, clusters); break;
+    case 3: err = max_clusters<3, N>(*smem, cluster, clusters); break;
+    default: err = max_clusters<4, N>(*smem, cluster, clusters); break;
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace gen
+
+namespace ffn {
+
+constexpr int kChunk = 64;         // d_ff columns a chunk: the first product's wgmma N
+
+// one chunk of the packed image: W1 rows (kChunk x dp), W2 columns (dp x kChunk),
+// then b1 (kChunk f32)
+__host__ __device__ constexpr int w_bytes(int dp) { return kChunk * dp * 2; }
+__host__ __device__ constexpr int stage_bytes(int dp) { return 2 * w_bytes(dp) + kChunk * 4; }
+__host__ __device__ constexpr int part_ld(int dp) { return dp + 8; }   // f32 row: 8 banks apart row to row
+// rows of the 64-row tile that each of `cluster` blocks reduces, at most
+__host__ __device__ constexpr int share_rows(int cluster) { return (kRows + cluster - 1) / cluster; }
+// the slots a block receives the cluster's partials of its rows in
+__host__ __device__ constexpr int slot_bytes(int dp, int cluster) {
+  return cluster * share_rows(cluster) * part_ld(dp) * 4;
+}
+
+// The launch's shared memory: mbarriers, the x tile, the ring, and the slots
+// of the reduction. The slots lie apart from the ring where that leaves room
+// for 3 stages (or for all the chunks a block takes), so that a block may
+// receive partials while its peers still multiply; else they reuse the ring
+// after a cluster barrier. As many stages as fit, up to 4, and no more than
+// the chunks a block takes: so at least 2 wherever it takes 2 or more, as the
+// pipeline needs.
+int smem_bytes(int nt, int chunks, int cluster, int* stages, int* apart) {
+  const int dp = 64 * nt, per_rank = (chunks + cluster - 1) / cluster;
+  const int fixed = kHead + x_bytes(dp), slots = slot_bytes(dp, cluster);
+  const int cap = per_rank < kMaxStages ? per_rank : kMaxStages;
+  int s = (kSmemLimit - fixed - slots) / stage_bytes(dp);
+  s = s < cap ? s : cap;
+  if (s >= (cap < 3 ? cap : 3)) {
+    *stages = s;
+    *apart = 1;
+    return fixed + s * stage_bytes(dp) + slots;
+  }
+  s = (kSmemLimit - fixed) / stage_bytes(dp);
+  s = s < cap ? s : cap;
+  s = s > 1 ? s : 1;
+  *stages = s;
+  *apart = 0;
+  const int ring = s * stage_bytes(dp);
+  return fixed + (ring > slots ? ring : slots);
 }
 
 // d += A (64 x 16, bf16 pairs in registers) B (16 x 64, shared memory). Thread
@@ -347,19 +603,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t relu_pack(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(lo, 0.0f), fmaxf(hi, 0.0f));
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Issues (one wgmma group) hidden chunk (64 x 64) = x tile (64 x dp) . W1
-// chunk (64 x dp)^T, both K-major images in shared memory.
-template <int NT>
-__device__ __forceinline__ void issue_hidden(float (&h)[32], uint32_t xa, uint32_t sa) {
-  constexpr int kDp = 64 * NT;
-  fence_regs(h);
-  wgmma_fence();
-#pragma unroll
-  for (int k = 0; k < kDp / 16; ++k)
-    wgmma_ss(h, desc(xa + 256 * k, 128, 16 * kDp), desc(sa + 256 * k, 128, 16 * kDp), k);
-  wgmma_commit();
 }
 
 // + b1 (f32, in the stage), relu, bf16: the accumulator's 8-column block j
@@ -474,19 +717,7 @@ ffn_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ image,
                 kStage, bars + 8 * c);
     }
   }
-  {  // the x tile: 16-byte vector (m, kc) to core (m / 8, kc), row m % 8
-    constexpr int kVecs = kDp / 8;
-    const uint32_t xa = smem_addr(xs);
-    for (int v = tid; v < kRows * kVecs; v += kThreads) {
-      const int m = v / kVecs, kc = v % kVecs;
-      const bool in = row0 + m < r && kc * 8 < d;
-      const bf16* src = in ? x + static_cast<long long>(row0 + m) * d + kc * 8 : x;
-      cp_async16(xa + ((m >> 3) * kVecs + kc) * 128 + (m & 7) * 16, src, in ? 16 : 0);
-    }
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
-    // generic-proxy writes, read next by wgmma through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  }
+  load_x_tile<kDp>(x, r, d, row0, xs);
   __syncthreads();
   FFN_MARK(2);   // x tile loaded
 
@@ -524,7 +755,7 @@ ffn_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ image,
     if (c + 1 < n) {
       const int nx = (c + 1) % stages;
       mbar_wait(bars + 8 * nx, ((c + 1) / stages) & 1);
-      issue_hidden<NT>(h, xa, ring_a + nx * kStage);
+      issue_chunk<kDp, kChunk>(h, xa, ring_a + nx * kStage);
     }
     issue_out<NT>(acc, a, ring_a + st * kStage + kW);
   };
@@ -532,7 +763,7 @@ ffn_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ image,
   if (n > 0) {
     mbar_wait(bars, 0);
     FFN_MARK(3);   // first chunk landed
-    issue_hidden<NT>(h, xa, ring_a);
+    issue_chunk<kDp, kChunk>(h, xa, ring_a);
     wgmma_commit();   // an empty group in out(-1)'s place
   }
   for (int c = 0; c < n; c += 2) {
@@ -600,28 +831,14 @@ ffn_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ image,
   FFN_MARK(7);   // rows stored
 }
 
-cudaLaunchConfig_t launch_config(int r, int bytes, int cluster, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(cluster), static_cast<unsigned>((r + kRows - 1) / kRows), 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// The shared-memory opt-in, once per process and instantiation, not every call.
+// The shared-memory opt-in, once per device and instantiation, not every call.
 template <int NT>
 cudaError_t allow_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      ffn_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-  return err;
+  static PerDevice guard;
+  return guard([] {
+    return cudaFuncSetAttribute(ffn_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmemLimit);
+  });
 }
 
 template <int NT>
@@ -650,23 +867,21 @@ cudaError_t max_clusters(int bytes, int cluster, int* count) {
 
 }  // namespace
 
-// x (r, d), w (ceil16(vocab), d) bf16, b (>= vocab) bf16, all contiguous and
-// 16-byte aligned -> out (r,) int64. Returns the cudaError_t of the launch.
-extern "C" int spacap_generator_argmax(const void* x, const void* w, const void* b, int r, int d,
-                                       int vocab, long long* out, void* stream) {
-  if (bad_shape(r, d) || vocab <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  // once per process, for the widest d, not on every call
-  static const cudaError_t attr_err =
-      shared_bytes_gen(kMaxD) <= 48 * 1024
-          ? cudaSuccess
-          : cudaFuncSetAttribute(gen_argmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 shared_bytes_gen(kMaxD));
-  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
-  const unsigned blocks = static_cast<unsigned>((r + kRows - 1) / kRows);
-  gen_argmax_kernel<<<blocks, kThreads, shared_bytes_gen(d), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b), r, d,
-      vocab, out);
-  return static_cast<int>(cudaGetLastError());
+// x (r, d) bf16 contiguous and 16-byte aligned; image: pack_generator's
+// chunks (`chunks` = ceil(vocab / 128) of 128 vocab columns at d_pad = d
+// rounded up to 64); `cluster` blocks (1-8) split the vocab -> out (r,)
+// int64. Returns the cudaError_t of the launch.
+extern "C" int spacap_generator_argmax(const void* x, const void* image, int r, int d, int vocab,
+                                       int chunks, int cluster, long long* out, void* stream) {
+  return gen::argmax_entry<gen::kChunk>(x, image, r, d, vocab, chunks, cluster, out, stream);
+}
+
+// The launch spacap_generator_argmax makes for (d, vocab, chunks, cluster):
+// its ring stages, its dynamic shared memory in bytes, and how many of its
+// clusters the device holds at once. Returns the cudaError_t.
+extern "C" int spacap_generator_launch_info(int d, int vocab, int chunks, int cluster, int* stages,
+                                            int* smem, int* clusters) {
+  return gen::launch_info_entry<gen::kChunk>(d, vocab, chunks, cluster, stages, smem, clusters);
 }
 
 // x (r, d) bf16 contiguous and 16-byte aligned; image: pack_ffn's chunks
@@ -674,7 +889,7 @@ extern "C" int spacap_generator_argmax(const void* x, const void* w, const void*
 // `cluster` blocks (1-8) split d_ff -> out (r, d) bf16. Returns the cudaError_t.
 extern "C" int spacap_ffn(const void* x, const void* image, const void* b2, int r, int d,
                           int chunks, int cluster, void* out, void* stream) {
-  if (bad_shape(r, d) || chunks <= 0 || cluster < 1 || cluster > ffn::kMaxCluster)
+  if (bad_shape(r, d) || chunks <= 0 || cluster < 1 || cluster > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* xp = static_cast<const bf16*>(x);
   const auto* ip = static_cast<const unsigned char*>(image);
@@ -696,7 +911,7 @@ extern "C" int spacap_ffn(const void* x, const void* image, const void* b2, int 
 // holds at once (cudaOccupancyMaxActiveClusters). Returns the cudaError_t.
 extern "C" int spacap_ffn_launch_info(int d, int chunks, int cluster, int* stages, int* smem,
                                       int* clusters) {
-  if (bad_shape(1, d) || chunks <= 0 || cluster < 1 || cluster > ffn::kMaxCluster)
+  if (bad_shape(1, d) || chunks <= 0 || cluster < 1 || cluster > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nt = (d + 63) / 64;
   int apart = 0;

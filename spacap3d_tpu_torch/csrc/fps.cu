@@ -60,6 +60,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr float kMagEps = 1e-3f;
@@ -335,10 +337,10 @@ bool pick_variant(int per_block, int threads_cap, int* variant, int* threads) {
 }
 
 // Cluster sizes above 8 need the non-portable opt-in, and blocks above 48 KB
-// of shared memory theirs: once per process and instantiation, not every
-// call.
+// of shared memory theirs: once per device, not every call.
 cudaError_t allow_clusters() {
-  static const cudaError_t err = [] {
+  static PerDevice guard;
+  return guard([] {
     for (int v = 0; v < kVariants; ++v) {
       cudaError_t e = cudaFuncSetAttribute(
           cluster_kernel(v), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -348,8 +350,7 @@ cudaError_t allow_clusters() {
       if (e != cudaSuccess) return e;
     }
     return cudaSuccess;
-  }();
-  return err;
+  });
 }
 
 cudaLaunchConfig_t launch_config(int b, int cluster, int threads, int k, cudaStream_t stream,

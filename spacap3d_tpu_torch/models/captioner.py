@@ -214,8 +214,7 @@ class _DecodeWeights:
                 w["ffn"] = ops.pack_ffn(bf16(ff.w_1.matrix()), bf16(ff.w_1.bias),
                                         bf16(ff.w_2.matrix()), bf16(ff.w_2.bias))
             proj = model.generator.proj
-            self.gen = ops.pad_generator(bf16(proj.matrix()), bf16(proj.bias))
-        self.vocab = cfg.vocab_size
+            self.gen = ops.pack_generator(bf16(proj.matrix()), bf16(proj.bias))
         self.final_ln = (rnd(model.decoder.norm.a_2), rnd(model.decoder.norm.b_2))
         self.gen_w = rnd(model.generator.proj.matrix())
         self.gen_b = rnd(model.generator.proj.bias)
@@ -342,7 +341,7 @@ class Captioner(nn.Module):
         if not w.fused:
             return torch.argmax(self.next_logits(w, token, i, caches, offset, cross_kv), dim=-1)
         hid = self._step_hidden(w, token, i, caches, offset, cross_kv)
-        return ops.generator_argmax(hid.to(w.dd), *w.gen, w.vocab)
+        return ops.generator_argmax(hid.to(w.dd), w.gen)
 
     def greedy_decode(self, obj_token: torch.Tensor) -> torch.Tensor:
         """obj_token (R, 1, d) f32 -> tokens (R, max_des_len + 1) int32."""

@@ -6,14 +6,16 @@ from spacap3d_tpu_torch.ops.ball_query import ball_query, ball_query_plain  # no
 from spacap3d_tpu_torch.ops.boxes import get_3d_box_batch  # noqa: F401
 from spacap3d_tpu_torch.ops.decode import (  # noqa: F401
     ffn,
-    ffn_cluster,
     ffn_default_cluster,
     ffn_launch_info,
     ffn_plain,
     generator_argmax,
     generator_argmax_plain,
+    generator_default_cluster,
+    generator_launch_info,
+    one_wave_cluster,
     pack_ffn,
-    pad_generator,
+    pack_generator,
 )
 from spacap3d_tpu_torch.ops.fps import (  # noqa: F401
     fps_cluster,

@@ -38,8 +38,9 @@ def _sources():
 
 
 def _digest(sources) -> str:
+    """Of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -129,8 +130,10 @@ def library() -> ctypes.CDLL:
     lib.spacap_ball_query.argtypes = [vp, vp, i32, i32, i32, ctypes.c_float,
                                       i32, vp, vp]
     lib.spacap_ball_query.restype = i32
-    lib.spacap_generator_argmax.argtypes = [vp, vp, vp, i32, i32, i32, vp, vp]
+    lib.spacap_generator_argmax.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp, vp]
     lib.spacap_generator_argmax.restype = i32
+    lib.spacap_generator_launch_info.argtypes = [i32, i32, i32, i32, i32p, i32p, i32p]
+    lib.spacap_generator_launch_info.restype = i32
     lib.spacap_ffn.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp, vp]
     lib.spacap_ffn.restype = i32
     lib.spacap_ffn_launch_info.argtypes = [i32, i32, i32, i32p, i32p, i32p]

@@ -2,18 +2,17 @@
 
 Contract (as ``spacap3d_tpu/ops/decode_pallas.py``), all operands bf16:
 
-* ``generator_argmax(x, w, b, vocab)``: for each row of x (R, d), the first
-  index j < vocab of the maximum of ``x . w[j] + b[j]``, with f32
+* ``generator_argmax(x, pack_generator(w, b))``: for each row of x (R, d),
+  the first index j < vocab of the maximum of ``x . w[j] + b[j]``, with f32
   accumulation and the bias added in f32; the logits are never written.
 * ``ffn(x, pack_ffn(w1, b1, w2, b2))``:
   ``bf16(bf16(relu(x @ w1^T + b1)) @ w2^T + b2)``, f32 accumulation, the
   (R, d_ff) hidden kept on chip.
 
-Weights keep the port's (out, in) layout. The generator's rows are padded
-to a multiple of 16 (``pad_generator``), the kernel's column fragment; the
-padded columns are never candidates. ``pack_ffn`` lays the FFN's weights
-out once per decode as the shared-memory image the FFN kernel reads (see
-its docstring). d and d_ff are multiples of 16 and d is at most 256, or
+Weights are given in the port's (out, in) layout. ``pack_generator`` and
+``pack_ffn`` lay them out once per decode as the shared-memory image each
+kernel reads (see their docstrings); the generator's padded columns are
+never candidates. d and d_ff are multiples of 16 and d is at most 256, or
 the wrappers raise.
 
 The wrappers launch the CUDA kernels (``csrc/decode.cu``) for CUDA tensors
@@ -27,32 +26,23 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional
 
 import torch
 
 from spacap3d_tpu_torch.ops import _build
 
-COL_MULTIPLE = 16
 MAX_D = 256
-# the FFN kernel (csrc/decode.cu, namespace ffn): 64 rows a block, d padded to
-# 64-column output tiles, d_ff cut into 64-column chunks, 8 x 8 core matrices,
-# at most 8 blocks (the portable cluster size) splitting d_ff
-FFN_ROWS = 64
-FFN_TILE = 64
+# both kernels (csrc/decode.cu): 64 rows a block, d padded to a multiple of
+# 64, 8 x 8 core matrices, at most 8 blocks (the portable cluster size) in
+# the cluster that splits the weights; the generator cuts the vocab into
+# 128-column chunks (namespace gen, kChunk), the FFN d_ff into 64-column ones
+ROWS = 64
+D_TILE = 64
+CORE = 8
+MAX_CLUSTER = 8
+GEN_CHUNK = 128
 FFN_CHUNK = 64
-FFN_CORE = 8
-FFN_MAX_CLUSTER = 8
-
-
-def pad_generator(w: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Zero-pads the generator's (vocab, d) weight and (vocab,) bias to a
-    multiple of 16 rows, contiguous. Padded rows are masked by index."""
-    pad = -w.shape[0] % COL_MULTIPLE
-    if pad:
-        w = torch.cat([w, w.new_zeros((pad, w.shape[1]))])
-        b = torch.cat([b, b.new_zeros((pad,))])
-    return w.contiguous(), b.contiguous()
 
 
 def generator_argmax_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -61,6 +51,27 @@ def generator_argmax_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     logits of the first ``vocab`` columns, first maximum on ties."""
     logits = torch.matmul(x.float(), w[:vocab].float().t()) + b[:vocab].float()
     return torch.argmax(logits, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedGenerator:
+    """The generator's weights as ``pack_generator`` lays them out, and as given."""
+
+    image: torch.Tensor      # (chunks, stage bytes) uint8: the kernel's shared-memory image
+    w: torch.Tensor          # (vocab, d) bf16, as given: the plain version's operands
+    b: torch.Tensor          # (vocab,)
+
+    @property
+    def vocab(self) -> int:
+        return self.w.shape[0]
+
+    @property
+    def d(self) -> int:
+        return self.w.shape[1]
+
+    @property
+    def chunks(self) -> int:
+        return self.image.shape[0]
 
 
 def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -98,8 +109,42 @@ def _cores(m: torch.Tensor) -> torch.Tensor:
     """(..., rows, k) -> (..., rows / 8, k / 8, 8, 8): core matrix (i, j) holds
     rows 8i.. and columns 8j.., each core's 8 rows of 16 bytes contiguous."""
     *lead, rows, k = m.shape
-    m = m.reshape(*lead, rows // FFN_CORE, FFN_CORE, k // FFN_CORE, FFN_CORE)
+    m = m.reshape(*lead, rows // CORE, CORE, k // CORE, CORE)
     return m.transpose(-3, -2)
+
+
+def generator_image(w: torch.Tensor, b: torch.Tensor, chunk: int = GEN_CHUNK) -> torch.Tensor:
+    """(vocab, d) and (vocab,) -> the (chunks, stage bytes) uint8 image of
+    ``pack_generator`` at ``chunk`` vocab columns a chunk."""
+    v, d = w.shape
+    dp, vp = d + (-d % D_TILE), v + (-v % chunk)
+    wp = w.new_zeros((vp, dp))
+    wp[:v, :d] = w
+    bp = torch.zeros((vp,), dtype=torch.float32, device=b.device)
+    bp[:v] = b.float()
+    chunks = vp // chunk
+    return torch.cat([_cores(wp.reshape(chunks, chunk, dp)).reshape(chunks, -1).view(torch.uint8),
+                      bp.reshape(chunks, chunk).view(torch.uint8)], dim=1).contiguous()
+
+
+def pack_generator(w: torch.Tensor, b: torch.Tensor) -> PackedGenerator:
+    """Lays out the generator's bf16 weight w (vocab, d) and bias b (vocab,)
+    as the generator kernel's shared-memory image; once per decode.
+
+    d is zero-padded to d_pad (a multiple of 64) and the vocab to a
+    multiple of 128; the kernel masks the padded columns by index. Chunk c of
+    the image (one bulk copy) holds w rows [128c, 128c + 128) as a (128,
+    d_pad) matrix, K-major without swizzle in 8 x 8 core matrices (as in
+    ``pack_ffn``), then b[128c:128c + 128] in f32, which is exact. Runs on
+    any device, in plain torch.
+    """
+    if w.dim() != 2:
+        raise ValueError(f"pack_generator: w must be (vocab, d), got {tuple(w.shape)}")
+    _check("pack_generator", (("w", w), ("b", b)), (tuple(w.shape), (w.shape[0],)))
+    _check_width("pack_generator", w.shape[1])
+    if w.shape[0] <= 0:
+        raise ValueError("pack_generator: the vocab is empty")
+    return PackedGenerator(generator_image(w, b), w.contiguous(), b.contiguous())
 
 
 def pack_ffn(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -128,7 +173,7 @@ def pack_ffn(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     _check_width("pack_ffn", d)
     if f % 16 or f <= 0:
         raise ValueError(f"pack_ffn: d_ff = {f} must be a positive multiple of 16")
-    dp, fp = d + (-d % FFN_TILE), f + (-f % FFN_CHUNK)
+    dp, fp = d + (-d % D_TILE), f + (-f % FFN_CHUNK)
     chunks = fp // FFN_CHUNK
     w1p = w1.new_zeros((fp, dp))
     w1p[:f, :d] = w1
@@ -146,13 +191,14 @@ def pack_ffn(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     return PackedFFN(image.contiguous(), b2p, *(t.contiguous() for t in (w1, b1, w2, b2)))
 
 
-def ffn_cluster(r: int, chunks: int, resident: Callable[[int], int]) -> int:
-    """Blocks that split d_ff (S): the largest S <= 8, and no more than the
-    chunks, whose ceil(r / 64) clusters of S blocks the device holds all at
-    once (``resident(S)``: co-resident clusters), so the grid is one wave;
-    1 where no S >= 2 fits in one wave."""
-    tiles = -(-r // FFN_ROWS)
-    for s in range(min(FFN_MAX_CLUSTER, chunks), 1, -1):
+def one_wave_cluster(r: int, chunks: int, resident: Callable[[int], int]) -> int:
+    """Blocks that split the weights (S), for either kernel: the largest
+    S <= 8, and no more than the chunks, whose ceil(r / 64) clusters of S
+    blocks the device holds all at once (``resident(S)``: co-resident
+    clusters), so the grid is one wave; 1 where no S >= 2 fits in one
+    wave."""
+    tiles = -(-r // ROWS)
+    for s in range(min(MAX_CLUSTER, chunks), 1, -1):
         if resident(s) >= tiles:
             return s
     return 1
@@ -172,8 +218,28 @@ def ffn_launch_info(device_index: int, d: int, chunks: int, cluster: int) -> dic
 @functools.lru_cache(maxsize=None)
 def ffn_default_cluster(device_index: int, r: int, d: int, chunks: int) -> int:
     """The S that ``ffn`` takes by default for R = r on that device."""
-    return ffn_cluster(r, chunks, lambda s: ffn_launch_info(
+    return one_wave_cluster(r, chunks, lambda s: ffn_launch_info(
         device_index, d, chunks, s)["max_active_clusters"])
+
+
+@functools.lru_cache(maxsize=None)
+def generator_launch_info(device_index: int, d: int, vocab: int, cluster: int) -> dict:
+    """The generator kernel's launch on CUDA device ``device_index``: ring
+    stages, dynamic shared memory (bytes) and co-resident clusters."""
+    out = [ctypes.c_int() for _ in range(3)]
+    chunks = -(-vocab // GEN_CHUNK)
+    with torch.cuda.device(device_index):
+        err = _build.library().spacap_generator_launch_info(d, vocab, chunks, cluster,
+                                                            *map(ctypes.byref, out))
+    _build.check(err, "generator launch info")
+    return dict(zip(("stages", "dynamic_smem", "max_active_clusters"), (o.value for o in out)))
+
+
+@functools.lru_cache(maxsize=None)
+def generator_default_cluster(device_index: int, r: int, d: int, vocab: int) -> int:
+    """The S that ``generator_argmax`` takes by default for R = r on that device."""
+    return one_wave_cluster(r, -(-vocab // GEN_CHUNK), lambda s: generator_launch_info(
+        device_index, d, vocab, s)["max_active_clusters"])
 
 
 def _check(name: str, named, shapes) -> torch.device:
@@ -205,26 +271,36 @@ def _check_width(name: str, d: int) -> None:
         raise ValueError(f"{name}: d = {d} must be a multiple of 16 and at most {MAX_D}")
 
 
-def generator_argmax(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                     vocab: int) -> torch.Tensor:
-    """x (R, d), w (V, d) and b (V,) bf16 with V = vocab rounded up to 16
-    (``pad_generator``) -> (R,) int64 indices below ``vocab``."""
+def _cluster(name: str, cluster: Optional[int], default: Callable[[], int]) -> int:
+    if cluster is None:
+        return default()
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"{name}: cluster = {cluster} must be in [1, {MAX_CLUSTER}]")
+    return cluster
+
+
+def generator_argmax(x: torch.Tensor, packed: PackedGenerator, *,
+                     cluster: Optional[int] = None) -> torch.Tensor:
+    """x (R, d) bf16, ``packed = pack_generator(w, b)`` on x's device ->
+    (R,) int64 indices below ``packed.vocab``. ``cluster`` (1-8) sets how
+    many blocks split the vocab; by default ``generator_default_cluster``
+    picks it from R and the device."""
     if x.dim() != 2:
         raise ValueError(f"generator_argmax: x must be (R, d), got {tuple(x.shape)}")
     r, d = x.shape
-    v = vocab + (-vocab % COL_MULTIPLE)
-    named = (("x", x), ("w", w), ("b", b))
-    dev = _check("generator_argmax", named, ((r, d), (v, d), (v,)))
-    _check_width("generator_argmax", d)
+    dev = _check("generator_argmax", (("x", x), ("packed.w", packed.w)),
+                 ((r, packed.d), (packed.vocab, packed.d)))
     if dev.type == "cpu":
-        return generator_argmax_plain(x, w, b, vocab)
-    _check_cuda("generator_argmax", named)
+        return generator_argmax_plain(x, packed.w, packed.b, packed.vocab)
+    _check_cuda("generator_argmax", (("x", x),))
+    cluster = _cluster("generator_argmax", cluster, lambda: generator_default_cluster(
+        dev.index, r, d, packed.vocab))
     lib = _build.library()
     with torch.cuda.device(dev):
         out = torch.empty((r,), dtype=torch.long, device=dev)
         err = lib.spacap_generator_argmax(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), r, d, vocab, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            x.data_ptr(), packed.image.data_ptr(), r, d, packed.vocab, packed.chunks, cluster,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "generator_argmax")
     generator_argmax.launches += 1
     return out
@@ -242,10 +318,7 @@ def ffn(x: torch.Tensor, packed: PackedFFN, *, cluster: Optional[int] = None) ->
     if dev.type == "cpu":
         return ffn_plain(x, packed.w1, packed.b1, packed.w2, packed.b2)
     _check_cuda("ffn", (("x", x),))
-    if cluster is None:
-        cluster = ffn_default_cluster(dev.index, r, d, packed.chunks)
-    elif not 1 <= cluster <= FFN_MAX_CLUSTER:
-        raise ValueError(f"ffn: cluster = {cluster} must be in [1, {FFN_MAX_CLUSTER}]")
+    cluster = _cluster("ffn", cluster, lambda: ffn_default_cluster(dev.index, r, d, packed.chunks))
     lib = _build.library()
     with torch.cuda.device(dev):
         out = torch.empty((r, d), dtype=torch.bfloat16, device=dev)

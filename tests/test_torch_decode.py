@@ -52,7 +52,7 @@ def test_generator_argmax_plain_matches_pallas_interpret(n, d, vocab):
     wp, bp, v = dp.pad_generator({"kernel": wj, "bias": bj}, vocab, v_tile=512)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jax.jit(lambda x: dp.generator_argmax(x, wp, bp, v))(xj))
-    got = ops.generator_argmax(xt, *ops.pad_generator(wt.t().contiguous(), bt), vocab).numpy()
+    got = ops.generator_argmax(xt, ops.pack_generator(wt.t().contiguous(), bt)).numpy()
     np.testing.assert_array_equal(got, want)
     assert int(got.max()) < vocab
 
@@ -68,7 +68,7 @@ def test_generator_argmax_tie_across_tiles_takes_first():
     wp, bp, v = dp.pad_generator({"kernel": wj, "bias": bj}, 16, v_tile=8)  # two tiles
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(dp.generator_argmax(xj, wp, bp, v, v_tile=8))
-    got = ops.generator_argmax(xt, wt.t().contiguous(), bt, 16).numpy()
+    got = ops.generator_argmax(xt, ops.pack_generator(wt.t().contiguous(), bt)).numpy()
     assert want.tolist() == [3] * 8
     assert got.tolist() == [3] * 8
 
@@ -79,9 +79,10 @@ def test_padded_generator_columns_never_win():
     _, xt = _bf16(rng.randn(20, 32))
     _, wt = _bf16(rng.randn(37, 32) * 0.01)
     _, bt = _bf16(np.full(37, -4.0))
-    w, b = ops.pad_generator(wt, bt)
-    assert w.shape == (48, 32) and b.shape == (48,) and not w[37:].any()
-    got = ops.generator_argmax(xt, w, b, 37)
+    packed = ops.pack_generator(wt, bt)
+    w, b = _read_generator(packed)
+    assert w.shape == (128, 64) and b.shape == (128,) and not w[37:].any() and not b[37:].any()
+    got = ops.generator_argmax(xt, packed)
     want = torch.argmax(xt.float() @ wt.float().t() + bt.float(), -1)
     assert torch.equal(got, want) and int(got.max()) < 37
 
@@ -103,10 +104,9 @@ def test_ffn_plain_matches_pallas_interpret(n):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
-    x = torch.zeros(4, 24, dtype=torch.bfloat16)                  # d not a multiple of 16
-    with pytest.raises(ValueError, match="multiple of 16"):
-        ops.generator_argmax(x, torch.zeros(16, 24, dtype=torch.bfloat16),
-                             torch.zeros(16, dtype=torch.bfloat16), 16)
+    with pytest.raises(ValueError, match="multiple of 16"):     # d not a multiple of 16
+        ops.pack_generator(torch.zeros(16, 24, dtype=torch.bfloat16),
+                           torch.zeros(16, dtype=torch.bfloat16))
     bf = torch.bfloat16
     x = torch.zeros(4, 32)
     w1, b1, w2, b2 = (torch.zeros(s, dtype=bf) for s in ((64, 32), (64,), (32, 64), (32,)))
@@ -115,8 +115,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ops.ffn(x, packed)
     with pytest.raises(ValueError, match="shape"):                # x of another width
         ops.ffn(torch.zeros(4, 48, dtype=bf), packed)
-    with pytest.raises(ValueError, match="shape"):                # vocab not padded to 16
-        ops.generator_argmax(x.to(bf), torch.zeros(20, 32, dtype=bf), torch.zeros(20, dtype=bf), 20)
+    with pytest.raises(ValueError, match="shape"):                # x of another width
+        ops.generator_argmax(x.to(bf), ops.pack_generator(torch.zeros(20, 48, dtype=bf),
+                                                          torch.zeros(20, dtype=bf)))
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.generator_argmax(x, ops.pack_generator(torch.zeros(20, 32, dtype=bf),
+                                                   torch.zeros(20, dtype=bf)))
     meta = torch.zeros(4, 32, dtype=bf, device="meta")
     with pytest.raises(ValueError, match="device"):
         ops.ffn(meta, ops.pack_ffn(*(t.to("meta") for t in (w1, b1, w2, b2))))
@@ -201,7 +205,78 @@ def test_pack_ffn_refuses_what_the_kernel_does_not_take(shapes, dtype, match):
 def test_ffn_cluster_is_the_largest_that_runs_in_one_wave(r, chunks, want):
     def resident(s):   # an H100's co-resident 64-row clusters at d 128 by size
         return {1: 132, 2: 66, 3: 44, 4: 30, 5: 22, 6: 16, 7: 14, 8: 14}[s]
-    assert ops.ffn_cluster(r, chunks, resident) == want
+    assert ops.one_wave_cluster(r, chunks, resident) == want
+
+
+def _read_generator(packed):
+    """Reads (w, b) back from ``packed.image`` at d_pad and the padded
+    vocab, by the layout pack_generator documents: in the (128, d_pad) matrix
+    of a chunk, element (n, k) is bf16 number
+    64 ((n // 8) d_pad / 8 + k // 8) + 8 (n % 8) + k % 8."""
+    img = packed.image
+    dp, n = -(-packed.d // 64) * 64, dops.GEN_CHUNK
+    assert img.dtype == torch.uint8 and img.shape == (-(-packed.vocab // n), n * dp * 2 + n * 4)
+    rows, k = np.meshgrid(np.arange(n), np.arange(dp), indexing="ij")
+    order = torch.from_numpy(64 * ((rows // 8) * (dp // 8) + k // 8) + 8 * (rows % 8) + k % 8)
+    w = torch.cat([c[:n * dp * 2].view(torch.bfloat16)[order] for c in img])
+    b = torch.cat([c[n * dp * 2:].view(torch.float32) for c in img])
+    return w, b
+
+
+@pytest.mark.parametrize("vocab,d", [(4528, 128), (37, 32), (300, 144), (128, 256)])
+def test_pack_generator_round_trips_and_pads_with_zeros(vocab, d):
+    rng = np.random.RandomState(vocab + d)
+    _, w = _bf16(rng.uniform(-0.1, 0.1, (vocab, d)))
+    _, b = _bf16(rng.uniform(-0.1, 0.1, vocab))
+    packed = ops.pack_generator(w, b)
+    assert (packed.vocab, packed.d, packed.chunks) == (vocab, d, -(-vocab // 128))
+    got_w, got_b = _read_generator(packed)
+    assert got_w.shape == (packed.chunks * 128, -(-d // 64) * 64) and got_b.dtype == torch.float32
+    assert torch.equal(got_w[:vocab, :d], w) and torch.equal(got_b[:vocab], b.float())
+    assert torch.equal(packed.w, w) and torch.equal(packed.b, b)
+    for pad in (got_w[vocab:], got_w[:, d:], got_b[vocab:]):
+        assert not pad.float().abs().sum()
+
+
+@pytest.mark.parametrize("shapes,dtype,match", [
+    (((16, 24), (16,)), torch.bfloat16, "multiple of 16"),      # d
+    (((16, 272), (16,)), torch.bfloat16, "at most 256"),        # d
+    (((16, 32), (15,)), torch.bfloat16, "b has shape"),
+    (((16, 32), (16,)), torch.float32, "bfloat16"),
+    (((0, 32), (0,)), torch.bfloat16, "vocab is empty"),
+    (((16,), (16,)), torch.bfloat16, "must be \\(vocab, d\\)"),
+])
+def test_pack_generator_refuses_what_the_kernel_does_not_take(shapes, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        ops.pack_generator(*(torch.zeros(s, dtype=dtype) for s in shapes))
+
+
+@pytest.mark.parametrize("r,chunks,want", [
+    (2048, 36, 3), (2000, 36, 3),          # 32 row tiles: 30 clusters of 4 resident, 44 of 3
+    (132 * 64, 36, 1),                     # the row tiles alone fill the card
+    (64, 36, 8), (64, 2, 2), (64, 1, 1),   # at most 8, and never more ranks than chunks
+])
+def test_generator_cluster_is_the_largest_that_runs_in_one_wave(r, chunks, want):
+    def resident(s):   # co-resident 64-row clusters at one block an SM, by size
+        return {1: 132, 2: 66, 3: 44, 4: 30, 5: 22, 6: 16, 7: 14, 8: 14}[s]
+    s = ops.one_wave_cluster(r, chunks, resident)
+    assert s == want and s <= chunks
+
+
+@pytest.mark.parametrize("r,d,vocab", [(200, 128, 4528), (64, 32, 300), (100, 144, 1000)])
+def test_generator_argmax_on_packed_weights_equals_plain_bit_for_bit(r, d, vocab):
+    rng = np.random.RandomState(r + vocab)
+    _, x = _bf16(rng.randn(r, d))
+    _, w = _bf16(rng.uniform(-0.2, 0.2, (vocab, d)))
+    _, b = _bf16(rng.uniform(-0.1, 0.1, vocab))
+    got = ops.generator_argmax(x, ops.pack_generator(w, b))
+    assert got.dtype == torch.long and torch.equal(got, ops.generator_argmax_plain(x, w, b, vocab))
+
+
+def test_generator_chunk_matches_the_kernel_source():
+    """pack_generator lays the vocab out in the kernel's chunk width."""
+    src = (dops._build.CSRC / "decode.cu").read_text()
+    assert f"constexpr int kChunk = {dops.GEN_CHUNK};   // vocab columns a chunk" in src
 
 
 def _tiny(**kw):
