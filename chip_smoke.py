@@ -7,7 +7,9 @@ Builds the CUDA kernels from ``spacap3d_tpu_torch/csrc``, holds each kernel
 against its plain PyTorch version at every shape the eval forward gives it
 (FPS also at every cluster size the device holds, on lattice ties, a ragged
 row, a row with fewer valid points than picks, a 60,000-point row and a row
-above the cluster kernel's limit), drives the eval forward at full width
+above the cluster kernel's limit; the decode kernels also at cluster sizes
+1-4, twice, and on exact-arithmetic inputs: ties, padding, empty cluster
+ranks), drives the eval forward at full width
 (default ModelConfig, B=8, 40,000 points) through ``make_eval_step``,
 unfused and with ``eval_decode_fused`` (the fused decode kernels), checks
 that each forward launched its kernels,

@@ -277,35 +277,42 @@ int smem_bytes(int nt, int n, int chunks, int cluster, int* stages) {
 
 // This thread's (value, index) scan over its columns of one chunk, whose
 // accumulator `acc` is complete: + the chunk's f32 bias, columns >= vocab
-// skipped by index (kMask: the chunk is ragged), the first maximum kept. The
-// thread visits its columns in increasing order (chunk by chunk), so a
-// strictly larger value is the only one that replaces its running best.
+// masked by index (kMask: the chunk is ragged), then a pairwise tree over
+// the row's N / 4 columns, in which a right (higher) column replaces a left
+// one only if strictly larger: the first maximum, in log2(N / 4) dependent
+// steps. The thread's chunks come in increasing order, so a strictly
+// larger chunk maximum is the only one that replaces its running best.
 template <int N, bool kMask>
 __device__ __forceinline__ void scan_chunk(const float (&acc)[N / 2], const float* bias, int col,
                                            int vocab, int quad, float (&best)[2], int (&idx)[2]) {
-  float lv[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  int lj[2] = {0, 0};
+  constexpr int kCols = N / 4;   // a row's columns in this thread: 8 j + q, q < 2
+  float2 b[N / 8];
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * quad);
+  for (int j = 0; j < N / 8; ++j) b[j] = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * quad);
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < 2; ++h) {
+    float v[kCols];
+    int c[kCols];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        if (kMask && col + 8 * j + q >= vocab) continue;
-        const float v = acc[4 * j + 2 * h + q] + (q ? b.y : b.x);
-        if (v > lv[h]) {
-          lv[h] = v;
-          lj[h] = 8 * j + q;
-        }
-      }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    if (lv[h] > best[h]) {
-      best[h] = lv[h];
-      idx[h] = col + lj[h];
+    for (int p = 0; p < kCols; ++p) {
+      const int j = p / 2, q = p % 2;
+      v[p] = acc[4 * j + 2 * h + q] + (q ? b[j].y : b[j].x);
+      if (kMask && col + 8 * j + q >= vocab) v[p] = -CUDART_INF_F;
+      c[p] = 8 * j + q;
     }
+#pragma unroll
+    for (int w = 1; w < kCols; w *= 2)
+#pragma unroll
+      for (int p = 0; p + w < kCols; p += 2 * w)
+        if (v[p + w] > v[p]) {
+          v[p] = v[p + w];
+          c[p] = c[p + w];
+        }
+    if (v[0] > best[h]) {
+      best[h] = v[0];
+      idx[h] = col + c[0];
+    }
+  }
 }
 
 // Replaces spacap3d_tpu/ops/decode_pallas.py::generator_argmax
@@ -315,7 +322,11 @@ __device__ __forceinline__ void scan_chunk(const float (&acc)[N / 2], const floa
 //
 // Bound on the H100: operations. 2 r d vocab flops (2.37 GFLOP at r 2048,
 // d 128, vocab 4528) are 2.4 us at the 989 TFLOP/s bf16 tensor-core rate; the
-// bytes (x, w, b once, the indices) are 1.7 MB, 0.5 us at 3.35 TB/s.
+// bytes (x, w, b once, the indices) are 1.7 MB, 0.5 us at 3.35 TB/s. What
+// holds it back (PERF.md, PR 6): a chunk costs ~0.68 us against 0.28 us of
+// wgmma at the peak rate, as its 33 KB copy, its wgmma and its scan overlap
+// poorly within an SM, and ~6 us a call are fixed (first copies, cluster
+// barriers, launch); each 64-row tile reads all of w from L2.
 //
 // Design. The first version (64 blocks of 32 rows, wmma fragments loaded
 // from global memory, the logits staged through shared memory as f32 behind
@@ -336,9 +347,13 @@ __device__ __forceinline__ void scan_chunk(const float (&acc)[N / 2], const floa
 //   memory, into one of two accumulator sets in turn: chunk c + 1's group is
 //   issued before chunk c's epilogue, so the tensor cores run while the
 //   warps scan.
-// - Epilogue on the accumulator registers: + bias, columns >= vocab skipped
-//   by index, a running (value, index) for each of the thread's two rows;
-//   at the end the 4 lanes of a row merge with two shuffles.
+// - Epilogue on the accumulator registers: + bias, columns >= vocab masked
+//   by index, a pairwise tree over each of the thread's two rows (shorter
+//   dependent chains than a running scan) into a running (value, index); at
+//   the end the 4 lanes of a row merge with two shuffles.
+// - N = 128: the time at N = 64 (71 chunks, two blocks an SM, S = 7) was
+//   the same (tools/gen_probe.py, in turns), and N = 256 cannot keep two
+//   accumulator sets of 128 registers a thread.
 // - Merge: each rank stores its 64 (value, index) pairs into rank 0's slots
 //   (st.shared::cluster); after one cluster barrier rank 0 merges them in rank
 //   order by (value, then lower index), a total order, and writes the rows
@@ -415,6 +430,7 @@ gen_argmax_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ 
     }
   };
 
+  // chunk c + 1's group runs while chunk c is scanned
   if (n > 0) issue(acc0, 0);
   for (int c = 0; c < n; c += 2) {
     if (c + 1 < n) {
@@ -434,6 +450,7 @@ gen_argmax_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ 
       finish(acc1, c + 1);
     }
   }
+  wgmma_wait<0>();   // none is pending: tells ptxas, which reuses the registers
 
   // the 4 lanes of a row hold its columns 2 quad.. of every 8
 #pragma unroll
@@ -468,7 +485,7 @@ gen_argmax_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ 
       bi = __float_as_int(p.y);
     }
   }
-  out[row0 + tid] = bi;
+  out[row0 + tid] = bi == kNone ? 0 : bi;   // every logit -inf: the first column
 }
 
 template <int NT, int N>

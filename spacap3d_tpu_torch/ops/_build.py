@@ -78,17 +78,20 @@ def _compile(lib_path: Path, sources) -> None:
 def ptxas_info() -> dict:
     """Per kernel entry (mangled name), as ``nvcc -Xptxas -v`` printed it at
     the last build: registers, stack frame, spill stores and loads (bytes),
-    static shared memory (bytes) and, where ptxas serialized its wgmma
-    (notes C7510-C7519), the note's code."""
+    static shared memory (bytes) and, where ptxas serialized its wgmma or
+    injected a wait for its accumulators (notes C7510-C7519), the notes'
+    codes."""
     info, entry = {}, None
     for src in _sources():
         log = BUILD_DIR / f"{src.stem}.log"
         if not log.exists():
             continue
         for ln in log.read_text().splitlines():
-            m = re.search(r"\((C751\d)\) .*wgmma.* in the function '([^']+)'", ln)
+            m = re.search(r"\((C751\d)\) .*(?:wgmma|GMMA).* in (?:the )?function '([^']+)'", ln)
             if m:
-                info.setdefault(m.group(2), {})["wgmma_serialized"] = m.group(1)
+                notes = info.setdefault(m.group(2), {}).setdefault("wgmma_serialized", [])
+                if m.group(1) not in notes:
+                    notes.append(m.group(1))
                 continue
             m = re.search(r"Compiling entry function '([^']+)'", ln)
             if m:
