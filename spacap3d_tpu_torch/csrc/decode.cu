@@ -245,17 +245,17 @@ cudaLaunchConfig_t launch_config(int r, int bytes, int cluster, cudaStream_t str
   return cfg;
 }
 
-// (value, index) order of the argmax: a larger value wins, an equal value with
-// a lower index wins (torch.argmax / jnp.argmax: the first maximum).
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
 // -------------------------------------------------------------- generator
 namespace gen {
 
 constexpr int kChunk = 128;   // vocab columns a chunk: the wgmma N
 constexpr int kNone = 0x7fffffff;   // the index of a candidate that never wins
+
+// (value, index) order of the argmax: a larger value wins, an equal value with
+// a lower index wins (torch.argmax / jnp.argmax: the first maximum).
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
 
 // one chunk of the packed image: W rows (n x dp), then their n biases in f32
 __host__ __device__ constexpr int w_bytes(int dp, int n) { return n * dp * 2; }

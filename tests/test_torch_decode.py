@@ -252,13 +252,13 @@ def test_pack_generator_refuses_what_the_kernel_does_not_take(shapes, dtype, mat
 
 
 @pytest.mark.parametrize("r,chunks,want", [
-    (2048, 36, 3), (2000, 36, 3),          # 32 row tiles: 30 clusters of 4 resident, 44 of 3
+    (2048, 36, 3), (2000, 36, 3),          # 32 row tiles: 30 clusters of 4 resident, 39 of 3
     (132 * 64, 36, 1),                     # the row tiles alone fill the card
     (64, 36, 8), (64, 2, 2), (64, 1, 1),   # at most 8, and never more ranks than chunks
 ])
 def test_generator_cluster_is_the_largest_that_runs_in_one_wave(r, chunks, want):
-    def resident(s):   # co-resident 64-row clusters at one block an SM, by size
-        return {1: 132, 2: 66, 3: 44, 4: 30, 5: 22, 6: 16, 7: 14, 8: 14}[s]
+    def resident(s):   # an H100's co-resident generator clusters at d 128 by size
+        return {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}[s]
     s = ops.one_wave_cluster(r, chunks, resident)
     assert s == want and s <= chunks
 
