@@ -323,10 +323,10 @@ __device__ __forceinline__ void scan_chunk(const float (&acc)[N / 2], const floa
 // Bound on the H100: operations. 2 r d vocab flops (2.37 GFLOP at r 2048,
 // d 128, vocab 4528) are 2.4 us at the 989 TFLOP/s bf16 tensor-core rate; the
 // bytes (x, w, b once, the indices) are 1.7 MB, 0.5 us at 3.35 TB/s. What
-// holds it back (PERF.md, PR 6): a chunk costs ~0.68 us against 0.28 us of
-// wgmma at the peak rate, as its 33 KB copy, its wgmma and its scan overlap
-// poorly within an SM, and ~6 us a call are fixed (first copies, cluster
-// barriers, launch); each 64-row tile reads all of w from L2.
+// holds it back (PERF.md, an H100 at 700 W): a chunk costs ~0.7 us against
+// 0.28 us of wgmma at the peak rate, as its 33 KB copy, its wgmma and its
+// scan overlap poorly within an SM, and ~6 us a call are fixed (first
+// copies, cluster barriers, launch); each 64-row tile reads all of w from L2.
 //
 // Design. The first version (64 blocks of 32 rows, wmma fragments loaded
 // from global memory, the logits staged through shared memory as f32 behind
