@@ -355,7 +355,7 @@ def phase_decode_kernels():
                                     bf16_uniform(rng, (vocab,), 1 / np.sqrt(d)))
         w, b = packed.w, packed.b
         cluster = ops.generator_default_cluster(dev, r, d, vocab)
-        name = f"gen_argmax_kernelILi{-(-d // 64)}ELi{ops.decode.GEN_CHUNK}E"
+        name = f"gen_argmax_kernelILi{-(-d // 64)}E"
         row = gen_check(x, packed)
         row.update(
             shape=[r, d, vocab], main_path=main, cluster=cluster, chunk=ops.decode.GEN_CHUNK,

@@ -257,38 +257,40 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// one chunk of the packed image: W rows (n x dp), then their n biases in f32
-__host__ __device__ constexpr int w_bytes(int dp, int n) { return n * dp * 2; }
-__host__ __device__ constexpr int stage_bytes(int dp, int n) { return w_bytes(dp, n) + n * 4; }
+// one chunk of the packed image: W rows (kChunk x dp), then their kChunk
+// biases in f32
+__host__ __device__ constexpr int w_bytes(int dp) { return kChunk * dp * 2; }
+__host__ __device__ constexpr int stage_bytes(int dp) { return w_bytes(dp) + kChunk * 4; }
 
 // The launch's shared memory: mbarriers, the x tile, the ring, and rank 0's
 // (value, index) slots, one a row and rank. As many stages as fit, up to 4,
 // and no more than the chunks a block takes (at least 2 wherever it takes 2
 // or more, as the pipeline needs: 2 stages fit at every d).
-int smem_bytes(int nt, int n, int chunks, int cluster, int* stages) {
+int smem_bytes(int nt, int chunks, int cluster, int* stages) {
   const int dp = 64 * nt, per_rank = (chunks + cluster - 1) / cluster;
   const int fixed = kHead + x_bytes(dp) + cluster * kRows * 8;
-  int s = (kSmemLimit - fixed) / stage_bytes(dp, n);
+  int s = (kSmemLimit - fixed) / stage_bytes(dp);
   s = s < kMaxStages ? s : kMaxStages;
   s = s < per_rank ? s : per_rank;
   *stages = s > 1 ? s : 1;
-  return fixed + *stages * stage_bytes(dp, n);
+  return fixed + *stages * stage_bytes(dp);
 }
 
 // This thread's (value, index) scan over its columns of one chunk, whose
 // accumulator `acc` is complete: + the chunk's f32 bias, columns >= vocab
 // masked by index (kMask: the chunk is ragged), then a pairwise tree over
-// the row's N / 4 columns, in which a right (higher) column replaces a left
-// one only if strictly larger: the first maximum, in log2(N / 4) dependent
+// the row's kChunk / 4 columns, in which a right (higher) column replaces a left
+// one only if strictly larger: the first maximum, in log2(kChunk / 4) dependent
 // steps. The thread's chunks come in increasing order, so a strictly
 // larger chunk maximum is the only one that replaces its running best.
-template <int N, bool kMask>
-__device__ __forceinline__ void scan_chunk(const float (&acc)[N / 2], const float* bias, int col,
-                                           int vocab, int quad, float (&best)[2], int (&idx)[2]) {
-  constexpr int kCols = N / 4;   // a row's columns in this thread: 8 j + q, q < 2
-  float2 b[N / 8];
+template <bool kMask>
+__device__ __forceinline__ void scan_chunk(const float (&acc)[kChunk / 2], const float* bias,
+                                           int col, int vocab, int quad, float (&best)[2],
+                                           int (&idx)[2]) {
+  constexpr int kCols = kChunk / 4;   // a row's columns in this thread: 8 j + q, q < 2
+  float2 b[kChunk / 8];
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) b[j] = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * quad);
+  for (int j = 0; j < kChunk / 8; ++j) b[j] = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * quad);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float v[kCols];
@@ -324,9 +326,10 @@ __device__ __forceinline__ void scan_chunk(const float (&acc)[N / 2], const floa
 // d 128, vocab 4528) are 2.4 us at the 989 TFLOP/s bf16 tensor-core rate; the
 // bytes (x, w, b once, the indices) are 1.7 MB, 0.5 us at 3.35 TB/s. What
 // holds it back (PERF.md, an H100 at 700 W): a chunk costs ~0.7 us against
-// 0.28 us of wgmma at the peak rate, as its 33 KB copy, its wgmma and its
-// scan overlap poorly within an SM, and ~6 us a call are fixed (first
-// copies, cluster barriers, launch); each 64-row tile reads all of w from L2.
+// 0.28 us of wgmma at the peak rate (why is open: its 33 KB copy, its wgmma
+// and its scan seem to overlap poorly within an SM), and ~6 us a call are
+// fixed (first copies, cluster barriers, launch); each 64-row tile reads all
+// of w from L2.
 //
 // Design. The first version (64 blocks of 32 rows, wmma fragments loaded
 // from global memory, the logits staged through shared memory as f32 behind
@@ -338,12 +341,12 @@ __device__ __forceinline__ void scan_chunk(const float (&acc)[N / 2], const floa
 //   in one wave).
 // - The x tile (64 x d_pad) is loaded once with cp.async, zero past r and d,
 //   into the core-matrix layout.
-// - Weights: pack_generator laid w out once per decode, chunk by chunk of N
-//   vocab columns, as this kernel's shared-memory image with the chunk's
+// - Weights: pack_generator laid w out once per decode, chunk by chunk of
+//   kChunk = 128 vocab columns, as this kernel's shared-memory image with the chunk's
 //   biases in f32, so a chunk is one contiguous cp.async.bulk copy into a
 //   ring of 2-4 stages, completed on an mbarrier; the next copies are in
 //   flight while a chunk is multiplied.
-// - Logits: wgmma m64nNk16 over d_pad / 16 k steps, both operands in shared
+// - Logits: wgmma m64n128k16 over d_pad / 16 k steps, both operands in shared
 //   memory, into one of two accumulator sets in turn: chunk c + 1's group is
 //   issued before chunk c's epilogue, so the tensor cores run while the
 //   warps scan.
@@ -351,21 +354,21 @@ __device__ __forceinline__ void scan_chunk(const float (&acc)[N / 2], const floa
 //   by index, a pairwise tree over each of the thread's two rows (shorter
 //   dependent chains than a running scan) into a running (value, index); at
 //   the end the 4 lanes of a row merge with two shuffles.
-// - N = 128: the time at N = 64 (71 chunks, two blocks an SM, S = 7) was
-//   the same (tools/gen_probe.py, in turns), and N = 256 cannot keep two
+// - 128 columns a chunk: 64 (71 chunks, two blocks an SM, S = 7) took the
+//   same time on the card (PERF.md, PR 6), and 256 cannot keep two
 //   accumulator sets of 128 registers a thread.
 // - Merge: each rank stores its 64 (value, index) pairs into rank 0's slots
 //   (st.shared::cluster); after one cluster barrier rank 0 merges them in rank
 //   order by (value, then lower index), a total order, and writes the rows
 //   below r. No atomics: the same bits on every run. A rank that owns no chunk
 //   stores (-inf, kNone), which loses to every real column.
-template <int NT, int N>  // d_pad = 64 NT; N vocab columns a chunk
+template <int NT>  // d_pad = 64 NT
 __global__ void __launch_bounds__(kThreads, 1)
 gen_argmax_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ image, int r, int d,
                   int vocab, int chunks, int stages, long long* __restrict__ out) {
   constexpr int kDp = 64 * NT;
-  constexpr int kStage = stage_bytes(kDp, N);
-  constexpr int kW = w_bytes(kDp, N);
+  constexpr int kStage = stage_bytes(kDp);
+  constexpr int kW = w_bytes(kDp);
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t bars = smem_addr(smem);   // mbarrier s at bars + 8 s
   unsigned char* xs = smem + kHead;
@@ -399,29 +402,29 @@ gen_argmax_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ 
 
   const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
   const uint32_t xa = smem_addr(xs), ring_a = smem_addr(ring);
-  float acc0[N / 2], acc1[N / 2];
+  float acc0[kChunk / 2], acc1[kChunk / 2];
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc0[i] = acc1[i] = 0.0f;
+  for (int i = 0; i < kChunk / 2; ++i) acc0[i] = acc1[i] = 0.0f;
   fence_regs(acc0);   // zeroed before any wgmma is in flight
   fence_regs(acc1);
   float best[2] = {-CUDART_INF_F, -CUDART_INF_F};
   int idx[2] = {kNone, kNone};
 
   // chunk c's group, once its stage has landed
-  auto issue = [&](float(&acc)[N / 2], int c) {
+  auto issue = [&](float(&acc)[kChunk / 2], int c) {
     const int st = c % stages;
     mbar_wait(bars + 8 * st, (c / stages) & 1);
-    issue_chunk<kDp, N>(acc, xa, ring_a + st * kStage);
+    issue_chunk<kDp, kChunk>(acc, xa, ring_a + st * kStage);
   };
   // chunk c's group is complete: its scan, then its stage takes chunk c + stages
-  auto finish = [&](float(&acc)[N / 2], int c) {
+  auto finish = [&](float(&acc)[kChunk / 2], int c) {
     fence_regs(acc);
-    const int st = c % stages, col0 = (c0 + c) * N;
+    const int st = c % stages, col0 = (c0 + c) * kChunk;
     const float* bias = reinterpret_cast<const float*>(ring + st * kStage + kW);
-    if (col0 + N <= vocab)
-      scan_chunk<N, false>(acc, bias, col0 + 2 * quad, vocab, quad, best, idx);
+    if (col0 + kChunk <= vocab)
+      scan_chunk<false>(acc, bias, col0 + 2 * quad, vocab, quad, best, idx);
     else
-      scan_chunk<N, true>(acc, bias, col0 + 2 * quad, vocab, quad, best, idx);
+      scan_chunk<true>(acc, bias, col0 + 2 * quad, vocab, quad, best, idx);
     __syncthreads();   // every thread has read the stage's biases
     if (tid == 0 && c + stages < n) {
       mbar_expect_tx(bars + 8 * st, kStage);
@@ -488,75 +491,40 @@ gen_argmax_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ 
   out[row0 + tid] = bi == kNone ? 0 : bi;   // every logit -inf: the first column
 }
 
-template <int NT, int N>
+template <int NT>
 cudaError_t allow_smem() {
   static PerDevice guard;
   return guard([] {
-    return cudaFuncSetAttribute(gen_argmax_kernel<NT, N>,
+    return cudaFuncSetAttribute(gen_argmax_kernel<NT>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   });
 }
 
-template <int NT, int N>
+template <int NT>
 cudaError_t launch(const bf16* x, const unsigned char* image, int r, int d, int vocab, int chunks,
                    int cluster, long long* out, cudaStream_t stream) {
-  cudaError_t err = allow_smem<NT, N>();
+  cudaError_t err = allow_smem<NT>();
   if (err != cudaSuccess) return err;
   int stages = 0;
-  const int bytes = smem_bytes(NT, N, chunks, cluster, &stages);
+  const int bytes = smem_bytes(NT, chunks, cluster, &stages);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(r, bytes, cluster, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, gen_argmax_kernel<NT, N>, x, image, r, d, vocab, chunks, stages,
-                           out);
+  err = cudaLaunchKernelEx(&cfg, gen_argmax_kernel<NT>, x, image, r, d, vocab, chunks, stages, out);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int NT, int N>
+template <int NT>
 cudaError_t max_clusters(int bytes, int cluster, int* count) {
-  const cudaError_t err = allow_smem<NT, N>();
+  const cudaError_t err = allow_smem<NT>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(kRows, bytes, cluster, nullptr, &attr);
-  return cudaOccupancyMaxActiveClusters(count, gen_argmax_kernel<NT, N>, &cfg);
+  return cudaOccupancyMaxActiveClusters(count, gen_argmax_kernel<NT>, &cfg);
 }
 
-bool bad_args(int r, int d, int vocab, int n, int chunks, int cluster) {
-  return bad_shape(r, d) || vocab <= 0 || chunks != (vocab + n - 1) / n || cluster < 1 ||
-         cluster > kMaxCluster;
-}
-
-// The C entry points at chunk width N (kChunk in the library).
-template <int N>
-int argmax_entry(const void* x, const void* image, int r, int d, int vocab, int chunks, int cluster,
-                 long long* out, void* stream) {
-  if (bad_args(r, d, vocab, N, chunks, cluster)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* xp = static_cast<const bf16*>(x);
-  const auto* ip = static_cast<const unsigned char*>(image);
-  const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch ((d + 63) / 64) {
-    case 1: err = launch<1, N>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
-    case 2: err = launch<2, N>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
-    case 3: err = launch<3, N>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
-    default: err = launch<4, N>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
-  }
-  return static_cast<int>(err);
-}
-
-template <int N>
-int launch_info_entry(int d, int vocab, int chunks, int cluster, int* stages, int* smem,
-                      int* clusters) {
-  if (bad_args(1, d, vocab, N, chunks, cluster)) return static_cast<int>(cudaErrorInvalidValue);
-  const int nt = (d + 63) / 64;
-  *smem = smem_bytes(nt, N, chunks, cluster, stages);
-  cudaError_t err;
-  switch (nt) {
-    case 1: err = max_clusters<1, N>(*smem, cluster, clusters); break;
-    case 2: err = max_clusters<2, N>(*smem, cluster, clusters); break;
-    case 3: err = max_clusters<3, N>(*smem, cluster, clusters); break;
-    default: err = max_clusters<4, N>(*smem, cluster, clusters); break;
-  }
-  return static_cast<int>(err);
+bool bad_args(int r, int d, int vocab, int chunks, int cluster) {
+  return bad_shape(r, d) || vocab <= 0 || chunks != (vocab + kChunk - 1) / kChunk ||
+         cluster < 1 || cluster > kMaxCluster;
 }
 
 }  // namespace gen
@@ -890,7 +858,18 @@ cudaError_t max_clusters(int bytes, int cluster, int* count) {
 // int64. Returns the cudaError_t of the launch.
 extern "C" int spacap_generator_argmax(const void* x, const void* image, int r, int d, int vocab,
                                        int chunks, int cluster, long long* out, void* stream) {
-  return gen::argmax_entry<gen::kChunk>(x, image, r, d, vocab, chunks, cluster, out, stream);
+  if (gen::bad_args(r, d, vocab, chunks, cluster)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xp = static_cast<const bf16*>(x);
+  const auto* ip = static_cast<const unsigned char*>(image);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch ((d + 63) / 64) {
+    case 1: err = gen::launch<1>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
+    case 2: err = gen::launch<2>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
+    case 3: err = gen::launch<3>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
+    default: err = gen::launch<4>(xp, ip, r, d, vocab, chunks, cluster, out, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 // The launch spacap_generator_argmax makes for (d, vocab, chunks, cluster):
@@ -898,7 +877,17 @@ extern "C" int spacap_generator_argmax(const void* x, const void* image, int r, 
 // clusters the device holds at once. Returns the cudaError_t.
 extern "C" int spacap_generator_launch_info(int d, int vocab, int chunks, int cluster, int* stages,
                                             int* smem, int* clusters) {
-  return gen::launch_info_entry<gen::kChunk>(d, vocab, chunks, cluster, stages, smem, clusters);
+  if (gen::bad_args(1, d, vocab, chunks, cluster)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = (d + 63) / 64;
+  *smem = gen::smem_bytes(nt, chunks, cluster, stages);
+  cudaError_t err;
+  switch (nt) {
+    case 1: err = gen::max_clusters<1>(*smem, cluster, clusters); break;
+    case 2: err = gen::max_clusters<2>(*smem, cluster, clusters); break;
+    case 3: err = gen::max_clusters<3>(*smem, cluster, clusters); break;
+    default: err = gen::max_clusters<4>(*smem, cluster, clusters); break;
+  }
+  return static_cast<int>(err);
 }
 
 // x (r, d) bf16 contiguous and 16-byte aligned; image: pack_ffn's chunks

@@ -113,20 +113,6 @@ def _cores(m: torch.Tensor) -> torch.Tensor:
     return m.transpose(-3, -2)
 
 
-def generator_image(w: torch.Tensor, b: torch.Tensor, chunk: int = GEN_CHUNK) -> torch.Tensor:
-    """(vocab, d) and (vocab,) -> the (chunks, stage bytes) uint8 image of
-    ``pack_generator`` at ``chunk`` vocab columns a chunk."""
-    v, d = w.shape
-    dp, vp = d + (-d % D_TILE), v + (-v % chunk)
-    wp = w.new_zeros((vp, dp))
-    wp[:v, :d] = w
-    bp = torch.zeros((vp,), dtype=torch.float32, device=b.device)
-    bp[:v] = b.float()
-    chunks = vp // chunk
-    return torch.cat([_cores(wp.reshape(chunks, chunk, dp)).reshape(chunks, -1).view(torch.uint8),
-                      bp.reshape(chunks, chunk).view(torch.uint8)], dim=1).contiguous()
-
-
 def pack_generator(w: torch.Tensor, b: torch.Tensor) -> PackedGenerator:
     """Lays out the generator's bf16 weight w (vocab, d) and bias b (vocab,)
     as the generator kernel's shared-memory image; once per decode.
@@ -142,9 +128,19 @@ def pack_generator(w: torch.Tensor, b: torch.Tensor) -> PackedGenerator:
         raise ValueError(f"pack_generator: w must be (vocab, d), got {tuple(w.shape)}")
     _check("pack_generator", (("w", w), ("b", b)), (tuple(w.shape), (w.shape[0],)))
     _check_width("pack_generator", w.shape[1])
-    if w.shape[0] <= 0:
+    v, d = w.shape
+    if v <= 0:
         raise ValueError("pack_generator: the vocab is empty")
-    return PackedGenerator(generator_image(w, b), w.contiguous(), b.contiguous())
+    dp, vp = d + (-d % D_TILE), v + (-v % GEN_CHUNK)
+    chunks = vp // GEN_CHUNK
+    wp = w.new_zeros((vp, dp))
+    wp[:v, :d] = w
+    bp = torch.zeros((vp,), dtype=torch.float32, device=b.device)
+    bp[:v] = b.float()
+    wc = _cores(wp.reshape(chunks, GEN_CHUNK, dp))
+    image = torch.cat([wc.reshape(chunks, -1).view(torch.uint8),
+                       bp.reshape(chunks, GEN_CHUNK).view(torch.uint8)], dim=1)
+    return PackedGenerator(image.contiguous(), w.contiguous(), b.contiguous())
 
 
 def pack_ffn(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
