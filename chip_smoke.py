@@ -7,9 +7,12 @@ Builds the CUDA kernels from ``spacap3d_tpu_torch/csrc``, holds each kernel
 against its plain PyTorch version at every shape the eval forward gives it
 (FPS also at every cluster size the device holds, on lattice ties, a ragged
 row, a row with fewer valid points than picks, a 60,000-point row and a row
-above the cluster kernel's limit; the decode kernels also at cluster sizes
-1-4, twice, and on exact-arithmetic inputs: ties, padding, empty cluster
-ranks), drives the eval forward at full width
+above the cluster kernel's limit; ball query twice and at each of its
+builds, also on clouds whose centres fill in the first tile or after
+several, rows at the tile size and one point either side, rows 10 m apart
+with centres no multiple of a block, and ns 1; the decode kernels also at
+cluster sizes 1-4, twice, and on exact-arithmetic inputs: ties, padding,
+empty cluster ranks), drives the eval forward at full width
 (default ModelConfig, B=8, 40,000 points) through ``make_eval_step``,
 unfused and with ``eval_decode_fused`` (the fused decode kernels), checks
 that each forward launched its kernels,
@@ -34,6 +37,7 @@ from spacap3d_tpu_torch import ops
 from spacap3d_tpu_torch.config import SOS_ID, ModelConfig
 from spacap3d_tpu_torch.models import init_spacap
 from spacap3d_tpu_torch.ops import _build
+from spacap3d_tpu_torch.ops.ball_query import launch_ball_query
 from spacap3d_tpu_torch.tools.fps_probe import fps_capped
 from spacap3d_tpu_torch.train.step import eval_tail, make_eval_step, to_device_batch
 
@@ -42,6 +46,12 @@ from spacap3d_tpu_torch.train.step import eval_tail, make_eval_step, to_device_b
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# lane instructions a second: 132 SMs x 4 schedulers x 32 lanes at the
+# 1.98 GHz boost clock; the ball-query scan issues about 7 a pair (c . p 3,
+# the add, the fold, the compare, a vote): its instruction floor, beside
+# the bound
+PEAK_LANE_INSTR = 132 * 4 * 32 * 1.98e9
+BQ_INSTR_A_PAIR = 7
 
 B = 8
 DEV = "cuda"
@@ -212,30 +222,81 @@ def phase_fps():
     return rows
 
 
-def bq_input(rng, n, m, r):
-    pts, _ = bench_points(rng, B, n)
+def bq_input(rng, n, m, r, b=None, scale=6.0):
+    """Scene-like clouds (``scale`` m wide; 6 as bench.py makes them), b rows
+    (default B), whose first m points are the centres; points on the radius
+    boundary around the first centres, and four centres with no hit."""
+    b = b or B
+    pts, _ = bench_points(rng, b, n)
+    pts *= scale / 6.0
     centers = pts[:, :m].copy()
-    # points on the radius boundary around the first centres
     k = min(128, m, n - m)
-    d = rng.randn(B, k, 3)
+    d = rng.randn(b, k, 3)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     pts[:, n - k:] = (centers[:, :k].astype(np.float64) + r * d).astype(np.float32)
     centers[:, -4:] = 100.0                     # centres with no hit
     return pts, centers
 
 
+def bq_cases(rng):
+    """Check-only inputs: (what, points, centres, r, ns)."""
+    tile = ops.BQ_TILE_POINTS
+    block = ops.BQ_WARP_CENTRES[0] * ops.BQ_WARPS     # centres of the widest block
+    cases = [("saturating dense cloud", *bq_input(rng, 40000, 2048, 0.2, scale=0.6), 0.2, 64),
+             ("filling after several tiles", *bq_input(rng, 40000, 2048, 0.2, scale=2.0), 0.2, 64)]
+    for n in (tile - 1, tile, tile + 1, 2 * tile + 1):
+        pts, centers = bq_input(rng, n, 256, 0.3)
+        # hits of the first centres on both sides of every tile edge
+        for e in range(tile, n + 1, tile):
+            pts[:, e - 6:e + 6] = centers[:, :1] + rng.uniform(-0.1, 0.1, (B, 12, 3)).astype(
+                np.float32)[:, :min(12, n - e + 6)]
+        cases.append((f"N {n}, tile {tile}", pts, centers, 0.3, 16))
+    # B = 3 rows 10 m apart: a block that read another row would find no hit
+    pts, centers = bq_input(rng, 4096, 3 * block + 5, 0.4, b=3)
+    shift = (10.0 * np.arange(3, dtype=np.float32))[:, None, None]
+    cases.append((f"B 3 rows apart, m {3 * block + 5}", pts + shift, centers + shift, 0.4, 32))
+    cases.append(("ns 1", *bq_input(rng, 2048, 1000, 0.4), 0.4, 1))
+    return cases
+
+
+def bq_check(xyz, cen, r, ns, what):
+    """The kernel twice through the wrapper, and once at each build (centres
+    a warp), against the plain version: equal indices."""
+    got = ops.ball_query(xyz, cen, r, ns)
+    again = ops.ball_query(xyz, cen, r, ns)
+    want = ops.ball_query_plain(xyz, cen, r, ns)
+    builds = {c: launch_ball_query(xyz, cen, r, ns, c) for c in ops.BQ_WARP_CENTRES}
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"ball_query {what}: two calls differ")
+    for c, idx in [("default", got), *builds.items()]:
+        if not torch.equal(idx, want):
+            bad = torch.nonzero(idx != want)[0].tolist()
+            raise AssertionError(f"ball_query {what} ({c} centres a warp): kernel != plain, "
+                                 f"first at {bad}")
+    return got
+
+
+def bq_launch_row(b, m, ptxas):
+    """The main-path launch: centres a warp and a block, warps, points a
+    tile, shared memory, resident blocks and ptxas's registers and spills."""
+    dev = torch.cuda.current_device()
+    info = ops.ball_query_launch_info(dev, ops.ball_query_default_warp_centres(dev, b, m))
+    name = f"ball_query_kernelILi{info['warp_centres']}E"
+    pt = next(v for k, v in ptxas.items() if name in k)
+    return dict(info, blocks=ops.ball_query_blocks(b, m, info["warp_centres"]),
+                registers=pt.get("registers"), spill_stores=pt.get("spill_stores"),
+                spill_loads=pt.get("spill_loads"))
+
+
 def phase_kernels():
     results = {"fps": phase_fps(), "ball_query": []}
     rng = np.random.RandomState(0)
+    ptxas = _build.ptxas_info()
     for n, m, r, ns in BQ_SHAPES:
         pts, centers = bq_input(rng, n, m, r)
         xyz, cen = torch.from_numpy(pts).to(DEV), torch.from_numpy(centers).to(DEV)
-        got = ops.ball_query(xyz, cen, r, ns)
-        want = ops.ball_query_plain(xyz, cen, r, ns)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err:
-            raise AssertionError(f"ball_query N={n} m={m} r={r}: kernel != plain")
+        got = bq_check(xyz, cen, r, ns, f"N={n} m={m} r={r}")
         k_ms = cuda_ms(lambda: ops.ball_query(xyz, cen, r, ns), reps=10)
         p_ms = cuda_ms(lambda: ops.ball_query_plain(xyz, cen, r, ns),
                        reps=1, runs=3, warmup=1)
@@ -245,11 +306,21 @@ def phase_kernels():
         flops = 8.0 * scanned                     # 3 sub, 3 mul, 2 add a pair
         b_ms, b_by = bound(flops, B * n * 12 + B * m * 12 + B * m * ns * 4)
         hits = float((got[..., 0] != 0).float().mean())
-        row = dict(shape=[B, n, m], radius=r, nsample=ns, max_abs_err=err, ms=k_ms,
-                   plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                   pairs_scanned=int(scanned), centres_with_hits=hits)
+        row = dict(shape=[B, n, m], radius=r, nsample=ns, max_abs_err=0, ms=k_ms,
+                   plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   issue_floor_ms=scanned * BQ_INSTR_A_PAIR / PEAK_LANE_INSTR * 1e3,
+                   pairs_scanned=int(scanned), centres_with_hits=hits,
+                   centres_full=float(full.float().mean()), two_calls_equal=True,
+                   warp_centres_checked=list(ops.BQ_WARP_CENTRES),
+                   **bq_launch_row(B, m, ptxas))
         log("kernels", kernel="ball_query", **row)
         results["ball_query"].append(row)
+    for what, pts, centers, r, ns in bq_cases(rng):
+        xyz, cen = torch.from_numpy(pts).to(DEV), torch.from_numpy(centers).to(DEV)
+        got = bq_check(xyz, cen, r, ns, what)
+        log("kernels", kernel="ball_query", case=what, shape=[*pts.shape[:2], cen.shape[1]],
+            radius=r, nsample=ns, main_path=False, equal=True, two_calls_equal=True,
+            warp_centres_checked=list(ops.BQ_WARP_CENTRES), centres_full=float((got[..., -1] > got[..., 0]).float().mean()))
     return results
 
 
@@ -756,6 +827,11 @@ def main() -> int:
             "library_ms": None if None in lib else sum(lib),
             "per_shape": rows,
         })
+        if name == "ball_query":   # the block and build of each main-path launch
+            kernels[-1]["launch"] = [{k: r[k] for k in (
+                "shape", "nsample", "warp_centres", "warps", "centres_per_block", "blocks",
+                "tile_points", "shared_memory", "blocks_per_sm", "registers", "spill_stores",
+                "spill_loads", "issue_floor_ms")} for r in main]
         if name == "fps":   # the split, block and build of each main-path launch
             kernels[-1]["launch"] = [{k: r[k] for k in (
                 "shape", "npoint", "cluster", "threads", "points_per_thread", "shared_memory",

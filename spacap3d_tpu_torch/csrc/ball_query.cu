@@ -9,82 +9,245 @@
 //
 // Arithmetic: d2 = (|c|^2 + |p|^2) - 2 (c . p), where each three-term sum
 // is the chain fma(a_z, b_z, fma(a_y, b_y, a_x * b_x)) that the JAX oracle
-// (_ball_query_xla) compiles to on the CPU. r2 is float32(r * r) rounded
-// once from the double product on the host, as JAX does with the Python
-// radius; squaring a float radius here would flip boundary hits at
-// r = 0.2, 0.4 and 0.8. The intrinsics are never contracted by nvcc, so
-// the plain PyTorch version (ops/ball_query.py) agrees bit for bit.
+// (_ball_query_xla) compiles to on the CPU. The last two steps are one
+// fma(-2, c . p, |c|^2 + |p|^2): 2 (c . p) is exact in f32, so the fma
+// rounds the same exact value once, as the subtraction does. r2 is
+// float32(r * r) rounded once from the double product on the host, as JAX
+// does with the Python radius; squaring a float radius here would flip
+// boundary hits at r = 0.2, 0.4 and 0.8. The intrinsics are never
+// contracted by nvcc, so the plain PyTorch version (ops/ball_query.py)
+// agrees bit for bit. No tensor cores: a TF32 or bf16 cross term would
+// move hits on the radius boundary.
 //
-// Bound on the H100: the pairwise distance work (8 flops a pair over the
-// points scanned before the ns-th hit) against the f32 rate; the bytes
-// (points, centres and indices, each once) are a few MB. Design: one warp
-// per centre scans the row's points in input order, 32 at a time; a
-// ballot finds the hits, popc of the lower lanes ranks them, and the warp
-// stops at ns hits. No TPU-style prefix-sum tiling: the ballot is the
-// prefix sum. Points are read from L2 by every warp; sharing point tiles
-// through shared memory across a block's centres is left for later.
+// Bound on the H100: the pairs scanned (every point of the row before a
+// centre's ns-th hit; at SA1 on scene-like clouds almost no centre fills,
+// so all 40,000 points for each of 16,384 centres, 655 M pairs) at 8 flops
+// a pair against the f32 rate. The scan issues about 7 instructions a pair
+// (3 for c . p, the add, the fold, the compare, a vote), so what sets the
+// time is instruction issue, a floor about twice the flop bound. The
+// bytes (points, centres and indices, each once) are a few MB.
+//
+// Design: a block takes W warps (1-16; the wrapper's launch takes 16) of C
+// centres each (C = 1, 2 or 4; the wrapper picks it, ops/ball_query.py::
+// ball_query_warp_centres), all of one batch row, and walks that row's
+// points in input order in tiles of kTile points. Every tile is read from
+// L2 once per block instead of once per centre:
+//   1. cp.async copies tile t + 2 (raw x, y, z, 4 bytes a copy, so any N
+//      and any row offset is aligned) into one of two staging buffers while
+//      the block scans tile t;
+//   2. once a tile has landed, the block packs it as (x, y, z, |p|^2), each
+//      |p|^2 computed once, with points past the row's end at |p|^2 = inf
+//      (d2 = inf: never a hit);
+//   3. each warp scans the packed tile 32 points a chunk, each lane one
+//      point against the warp's C centres held in registers, so one
+//      shared-memory load serves C pairs. One vote finds whether any of the
+//      C centres has a hit in the chunk; only then a ballot per centre
+//      finds its hits and popc of the lower lanes ranks them, in index
+//      order, as in the one-warp-a-centre kernel it replaces.
+// Early exit: a centre with ns hits compares against -inf from then on and
+// a warp whose centres are all full stops scanning; the block stops
+// loading tiles once none of its centres can take another hit
+// (__syncthreads_or). C trades the shared-memory loads a pair (1 / C)
+// against the warps in flight (b m / C): C = 4 where there are centres
+// enough to keep every SM busy (SA1), fewer at the small call sites, where
+// centres fill within a few chunks and the time is latency.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kTile = 1024;         // points a tile
+constexpr int kMaxWarps = 16;       // warps a block, at most: the wrapper's launch
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az,
                                       float bx, float by, float bz) {
   return __fmaf_rn(az, bz, __fmaf_rn(ay, by, __fmul_rn(ax, bx)));
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
-                  int b, int n, int m, float r2, int ns, int* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long c = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (c >= static_cast<long long>(b) * m) return;  // the whole warp leaves together
-  const long long row = c / m;
-  const float* __restrict__ p = xyz + row * n * 3;
-  const float cx = __ldg(centers + 3 * c);
-  const float cy = __ldg(centers + 3 * c + 1);
-  const float cz = __ldg(centers + 3 * c + 2);
-  const float c2 = dot3(cx, cy, cz, cx, cy, cz);
-  int* __restrict__ o = out + c * ns;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  int count = 0;  // warp-uniform
-  int first = 0;  // warp-uniform
-  for (int base = 0; base < n && count < ns; base += 32) {
-    const int k = base + lane;
-    bool hit = false;
-    if (k < n) {
-      const float px = __ldg(p + 3 * k);
-      const float py = __ldg(p + 3 * k + 1);
-      const float pz = __ldg(p + 3 * k + 2);
-      const float p2 = dot3(px, py, pz, px, py, pz);
-      const float cross = dot3(cx, cy, cz, px, py, pz);
-      const float d2 = __fsub_rn(__fadd_rn(c2, p2), __fmul_rn(2.0f, cross));
-      hit = d2 < r2;
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Copies tile t of a row's raw x, y, z into buf and closes a cp.async group
+// (an empty one past the row's end, so that every thread's groups count
+// the tiles).
+__device__ __forceinline__ void issue_tile(float* buf, const float* __restrict__ row, int n,
+                                           int t) {
+  const int base = t * kTile;
+  if (base < n) {
+    const int floats = 3 * min(kTile, n - base);
+    const float* src = row + 3LL * base;
+    const uint32_t dst = smem_addr(buf);
+    for (int i = threadIdx.x; i < floats; i += blockDim.x) cp_async4(dst + 4 * i, src + i);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int C>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ centers, int n,
+                  int m, float r2, int ns, int* __restrict__ out) {
+  __shared__ float raw[2][3 * kTile];
+  __shared__ float4 tile[kTile];
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  const long long row = blockIdx.y;
+  const int c0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * C;
+  const float* __restrict__ p = xyz + row * n * 3;
+  int* __restrict__ o = out + (row * m + c0) * ns;
+
+  // the warp's centres; lim is r2 while a centre takes hits, -inf after
+  // (and for slots past m), and bit j of live says which still do
+  float cx[C], cy[C], cz[C], c2[C], lim[C];
+  int count[C], first[C];
+  unsigned live = 0;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    cx[j] = cy[j] = cz[j] = 0.0f;
+    lim[j] = -__int_as_float(0x7f800000);
+    count[j] = first[j] = 0;
+    if (c0 + j < m) {
+      const float* q = centers + (row * m + c0 + j) * 3;
+      cx[j] = __ldg(q);
+      cy[j] = __ldg(q + 1);
+      cz[j] = __ldg(q + 2);
+      lim[j] = r2;
+      live |= 1u << j;
     }
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    if (mask != 0u) {
-      if (count == 0) first = base + __ffs(static_cast<int>(mask)) - 1;
-      const int rank = count + __popc(mask & ((1u << lane) - 1u));
-      if (hit && rank < ns) o[rank] = k;
-      count += __popc(mask);
+    c2[j] = dot3(cx[j], cy[j], cz[j], cx[j], cy[j], cz[j]);
+  }
+
+  const int tiles = (n + kTile - 1) / kTile;
+  issue_tile(raw[0], p, n, 0);
+  issue_tile(raw[1], p, n, 1);
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<1>();   // this thread's copies of tile t have landed
+    // every thread's have, and every warp is done with tile t - 1; stop
+    // once no centre of the block can take another hit
+    if (!__syncthreads_or(live != 0)) break;
+    const int base = t * kTile;
+    const int pts = min(kTile, n - base);
+    const int chunks = (pts + 31) >> 5;
+    const float* r = raw[t & 1];
+    for (int i = threadIdx.x; i < 32 * chunks; i += blockDim.x) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000));
+      if (i < pts) {
+        v.x = r[3 * i];
+        v.y = r[3 * i + 1];
+        v.z = r[3 * i + 2];
+        v.w = dot3(v.x, v.y, v.z, v.x, v.y, v.z);
+      }
+      tile[i] = v;
+    }
+    __syncthreads();      // the packed tile is in; raw[t & 1] is free
+    issue_tile(raw[t & 1], p, n, t + 2);
+    if (live == 0) continue;
+#pragma unroll 4
+    for (int k = 0; k < chunks; ++k) {
+      const float4 q = tile[32 * k + lane];
+      float d2[C];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const float cross = dot3(cx[j], cy[j], cz[j], q.x, q.y, q.z);
+        d2[j] = __fmaf_rn(-2.0f, cross, __fadd_rn(c2[j], q.w));
+        any |= d2[j] < lim[j];
+      }
+      if (!__any_sync(kFull, any)) continue;
+      const int idx = base + 32 * k + lane;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const bool hit = d2[j] < lim[j];
+        const unsigned mask = __ballot_sync(kFull, hit);
+        if (mask == 0u) continue;
+        if (count[j] == 0) first[j] = base + 32 * k + __ffs(static_cast<int>(mask)) - 1;
+        const int rank = count[j] + __popc(mask & lower);
+        if (hit && rank < ns) o[j * ns + rank] = idx;
+        count[j] += __popc(mask);
+        if (count[j] >= ns) {
+          lim[j] = -__int_as_float(0x7f800000);
+          live &= ~(1u << j);
+        }
+      }
+      if (live == 0) break;
     }
   }
-  const int fill = count > 0 ? first : 0;
-  for (int s = min(count, ns) + lane; s < ns; s += 32) o[s] = fill;
+  cp_async_wait<0>();     // no copy may land after the block has left
+
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    if (c0 + j >= m) break;
+    const int fill = count[j] > 0 ? first[j] : 0;
+    for (int s = min(count[j], ns) + lane; s < ns; s += 32) o[j * ns + s] = fill;
+  }
 }
+
+using Kernel = void (*)(const float*, const float*, int, int, float, int, int*);
+
+// The build for C centres a warp; null for another C.
+Kernel kernel_for(int warp_centres) {
+  switch (warp_centres) {
+    case 1: return ball_query_kernel<1>;
+    case 2: return ball_query_kernel<2>;
+    case 4: return ball_query_kernel<4>;
+    default: return nullptr;
+  }
+}
+
+bool valid_warps(int warps) { return warps >= 1 && warps <= kMaxWarps; }
 
 }  // namespace
 
-// xyz (b, n, 3), centers (b, m, 3) f32 contiguous -> out (b, m, ns) int32.
-// Returns the cudaError_t of the launch.
-extern "C" int spacap_ball_query(const float* xyz, const float* centers, int b, int n,
-                                 int m, float r2, int ns, int* out, void* stream) {
-  if (b <= 0 || n <= 0 || m <= 0 || ns <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long warps = static_cast<long long>(b) * m;
-  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  ball_query_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(xyz, centers, b, n, m, r2, ns, out);
+// The points a tile and the most warps a block (ops/ball_query.py mirrors
+// both).
+extern "C" int spacap_ball_query_tile_points() { return kTile; }
+extern "C" int spacap_ball_query_max_warps() { return kMaxWarps; }
+
+// The launch at C = warp_centres (1, 2 or 4) and `warps` warps a block:
+// shared memory a block (bytes), how many such blocks an SM holds at once,
+// and the device's SMs. Returns the cudaError_t.
+extern "C" int spacap_ball_query_launch_info(int warp_centres, int warps, int* smem,
+                                             int* blocks_per_sm, int* sms) {
+  const Kernel k = kernel_for(warp_centres);
+  if (k == nullptr || !valid_warps(warps)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(k));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<int>(fa.sharedSizeBytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, reinterpret_cast<const void*>(k), warps * 32, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev));
+}
+
+// xyz (b, n, 3), centers (b, m, 3) f32 contiguous -> out (b, m, ns) int32,
+// with blocks of `warps` warps (1-16) of warp_centres centres each (1, 2 or
+// 4). Returns the cudaError_t of the launch.
+extern "C" int spacap_ball_query(const float* xyz, const float* centers, int b, int n, int m,
+                                 float r2, int ns, int warp_centres, int warps, int* out,
+                                 void* stream) {
+  const Kernel k = kernel_for(warp_centres);
+  if (b <= 0 || n <= 0 || m <= 0 || ns <= 0 || b > 65535 || k == nullptr ||
+      !valid_warps(warps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = warps * warp_centres;
+  const dim3 grid(static_cast<unsigned>((m + per_block - 1) / per_block),
+                  static_cast<unsigned>(b));
+  k<<<grid, warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(xyz, centers, n, m, r2, ns,
+                                                                 out);
   return static_cast<int>(cudaGetLastError());
 }

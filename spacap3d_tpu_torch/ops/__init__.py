@@ -2,7 +2,17 @@
 (generator argmax, FFN) have CUDA kernels (``csrc/``); the rest is plain
 PyTorch."""
 
-from spacap3d_tpu_torch.ops.ball_query import ball_query, ball_query_plain  # noqa: F401
+from spacap3d_tpu_torch.ops.ball_query import (  # noqa: F401
+    BQ_TILE_POINTS,
+    BQ_WARP_CENTRES,
+    BQ_WARPS,
+    ball_query,
+    ball_query_blocks,
+    ball_query_default_warp_centres,
+    ball_query_launch_info,
+    ball_query_plain,
+    ball_query_warp_centres,
+)
 from spacap3d_tpu_torch.ops.boxes import get_3d_box_batch  # noqa: F401
 from spacap3d_tpu_torch.ops.decode import (  # noqa: F401
     ffn,

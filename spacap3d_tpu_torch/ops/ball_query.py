@@ -10,15 +10,31 @@ chains, and compared with float32(radius * radius) rounded once from the
 double product, so hits on the radius boundary agree with the oracle.
 
 ``ball_query`` launches the CUDA kernel (``csrc/ball_query.cu``) for CUDA
-tensors and takes the plain version for CPU tensors.
+tensors and takes the plain version for CPU tensors. A block of the kernel
+holds C centres in each of its ``BQ_WARPS`` warps and walks its row's
+points in tiles of ``BQ_TILE_POINTS``; ``ball_query_warp_centres`` picks C
+from the batch, the centres and the card's SMs before the launch.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.ops._f32 import dot3
+
+# csrc/ball_query.cu kTile and kMaxWarps: points a tile, and the warps a
+# block of the wrapper's launch
+BQ_TILE_POINTS = 1024
+BQ_WARPS = 16
+# the centres a warp holds in the kernel's builds, most first
+BQ_WARP_CENTRES = (4, 2, 1)
+# warps an SM (of the 64 it holds) below which fewer centres a warp, and so
+# more warps, are faster (PERF.md, PR 7: the sweep)
+BQ_MIN_WARPS_A_SM = 16
 
 
 def radius_sq(radius: float) -> float:
@@ -54,6 +70,73 @@ def ball_query_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
     return out
 
 
+def ball_query_blocks(b: int, m: int, warp_centres: int, warps: int = BQ_WARPS) -> int:
+    """Blocks of the kernel's grid: each of the b rows' m centres in blocks
+    of ``warps * warp_centres``."""
+    return b * -(-m // (warps * warp_centres))
+
+
+def ball_query_warp_centres(b: int, m: int, sms: int) -> int:
+    """Centres a warp: the most in ``BQ_WARP_CENTRES`` that still leave
+    ``BQ_MIN_WARPS_A_SM`` warps for each of the card's ``sms`` SMs (more
+    centres a warp load each point for more pairs, fewer warps hide less
+    latency); the fewest if none does."""
+    return next((c for c in BQ_WARP_CENTRES if b * m >= c * BQ_MIN_WARPS_A_SM * sms),
+                BQ_WARP_CENTRES[-1])
+
+
+def _library() -> ctypes.CDLL:
+    """The kernel library, whose tile and block must be the ones above."""
+    lib = _build.library()
+    built = (lib.spacap_ball_query_tile_points(), lib.spacap_ball_query_max_warps())
+    if built != (BQ_TILE_POINTS, BQ_WARPS):
+        raise RuntimeError(f"ball_query: csrc/ball_query.cu has (tile, warps) = {built}, "
+                           f"ops/ball_query.py assumes {(BQ_TILE_POINTS, BQ_WARPS)}")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def ball_query_launch_info(device_index: int, warp_centres: int,
+                           warps: int = BQ_WARPS) -> dict:
+    """The kernel's launch with ``warps`` warps a block of ``warp_centres``
+    centres each on CUDA device ``device_index``: centres a block, points a
+    tile, shared memory a block (bytes), blocks an SM holds at once, and
+    the device's SMs."""
+    out = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(device_index):
+        err = _library().spacap_ball_query_launch_info(warp_centres, warps,
+                                                       *map(ctypes.byref, out))
+    _build.check(err, "ball_query launch info")
+    return dict(warp_centres=warp_centres, warps=warps, centres_per_block=warps * warp_centres,
+                tile_points=BQ_TILE_POINTS,
+                **dict(zip(("shared_memory", "blocks_per_sm", "sms"), (o.value for o in out))))
+
+
+@functools.lru_cache(maxsize=None)
+def ball_query_default_warp_centres(device_index: int, b: int, m: int) -> int:
+    """The centres a warp ``ball_query`` takes for (b, m) on that device."""
+    sms = ball_query_launch_info(device_index, BQ_WARP_CENTRES[0])["sms"]
+    return ball_query_warp_centres(b, m, sms)
+
+
+def launch_ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float, nsample: int,
+                      warp_centres: int, warps: int = BQ_WARPS) -> torch.Tensor:
+    """One launch of the kernel on contiguous CUDA tensors, with blocks of
+    ``warps`` warps (other than ``BQ_WARPS`` only for measurements) of
+    ``warp_centres`` centres each. Counts no launch: ``ball_query`` does."""
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    lib = _library()
+    with torch.cuda.device(xyz.device):
+        out = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
+        err = lib.spacap_ball_query(
+            xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, radius_sq(radius), nsample,
+            warp_centres, warps, out.data_ptr(),
+            torch.cuda.current_stream(xyz.device).cuda_stream)
+    _build.check(err, f"ball_query ({warp_centres} centres a warp, {warps} warps a block)")
+    return out
+
+
 def ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
                nsample: int) -> torch.Tensor:
     """(B, N, 3), (B, m, 3) f32 contiguous -> (B, m, nsample) int32."""
@@ -69,16 +152,8 @@ def ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
         raise ValueError(f"ball_query: unsupported device {xyz.device}")
     if not (xyz.is_contiguous() and new_xyz.is_contiguous()):
         raise ValueError("ball_query: inputs must be contiguous")
-    b, n, _ = xyz.shape
-    m = new_xyz.shape[1]
-    lib = _build.library()
-    with torch.cuda.device(xyz.device):
-        out = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
-        err = lib.spacap_ball_query(
-            xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, radius_sq(radius),
-            nsample, out.data_ptr(),
-            torch.cuda.current_stream(xyz.device).cuda_stream)
-    _build.check(err, "ball_query")
+    c = ball_query_default_warp_centres(xyz.device.index, xyz.shape[0], new_xyz.shape[1])
+    out = launch_ball_query(xyz, new_xyz, radius, nsample, c)
     ball_query.launches += 1
     return out
 
