@@ -36,14 +36,15 @@
 //      and any row offset is aligned) into one of two staging buffers while
 //      the block scans tile t;
 //   2. once a tile has landed, the block packs it as (x, y, z, |p|^2), each
-//      |p|^2 computed once, with points past the row's end at |p|^2 = inf
-//      (d2 = inf: never a hit);
-//   3. each warp scans the packed tile 32 points a chunk, each lane one
-//      point against the warp's C centres held in registers, so one
-//      shared-memory load serves C pairs. One vote finds whether any of the
-//      C centres has a hit in the chunk; only then a ballot per centre
-//      finds its hits and popc of the lower lanes ranks them, in index
-//      order, as in the one-warp-a-centre kernel it replaces.
+//      |p|^2 computed once, padded to a whole number of 64-point steps
+//      with points at |p|^2 = inf (d2 = inf: never a hit);
+//   3. each warp scans the packed tile two 32-point chunks a step, each
+//      lane one point of each against the warp's C centres held in
+//      registers, so one shared-memory load serves C pairs. One vote finds
+//      whether any of the C centres has a hit in the two chunks; only then
+//      a ballot per centre and chunk finds its hits and popc of the lower
+//      lanes ranks them, chunk by chunk in index order, as in the
+//      one-warp-a-centre kernel it replaces.
 // Early exit: a centre with ns hits compares against -inf from then on and
 // a warp whose centres are all full stops scanning; the block stops
 // loading tiles once none of its centres can take another hit
@@ -94,6 +95,29 @@ __device__ __forceinline__ void issue_tile(float* buf, const float* __restrict__
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
+// Takes the hits of one 32-point chunk (points start + lane), whose
+// distances to the warp's C centres are d2: for each centre with a hit, a
+// ballot finds them and popc of the lower lanes ranks them, in index order.
+template <int C>
+__device__ __forceinline__ void take_hits(const float (&d2)[C], float (&lim)[C],
+                                          int (&count)[C], int (&first)[C], unsigned& live,
+                                          int start, int lane, int ns, int* __restrict__ o) {
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const bool hit = d2[j] < lim[j];
+    const unsigned mask = __ballot_sync(kFull, hit);
+    if (mask == 0u) continue;
+    if (count[j] == 0) first[j] = start + __ffs(static_cast<int>(mask)) - 1;
+    const int rank = count[j] + __popc(mask & ((1u << lane) - 1u));
+    if (hit && rank < ns) o[j * ns + rank] = start + lane;
+    count[j] += __popc(mask);
+    if (count[j] >= ns) {
+      lim[j] = -__int_as_float(0x7f800000);
+      live &= ~(1u << j);
+    }
+  }
+}
+
 template <int C>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ centers, int n,
@@ -101,7 +125,6 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ cente
   __shared__ float raw[2][3 * kTile];
   __shared__ float4 tile[kTile];
   const int lane = threadIdx.x & 31;
-  const unsigned lower = (1u << lane) - 1u;
   const long long row = blockIdx.y;
   const int c0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * C;
   const float* __restrict__ p = xyz + row * n * 3;
@@ -138,9 +161,9 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ cente
     if (!__syncthreads_or(live != 0)) break;
     const int base = t * kTile;
     const int pts = min(kTile, n - base);
-    const int chunks = (pts + 31) >> 5;
+    const int padded = (pts + 63) & ~63;   // whole pairs of chunks
     const float* r = raw[t & 1];
-    for (int i = threadIdx.x; i < 32 * chunks; i += blockDim.x) {
+    for (int i = threadIdx.x; i < padded; i += blockDim.x) {
       float4 v = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000));
       if (i < pts) {
         v.x = r[3 * i];
@@ -153,34 +176,30 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ cente
     __syncthreads();      // the packed tile is in; raw[t & 1] is free
     issue_tile(raw[t & 1], p, n, t + 2);
     if (live == 0) continue;
-#pragma unroll 4
-    for (int k = 0; k < chunks; ++k) {
-      const float4 q = tile[32 * k + lane];
-      float d2[C];
-      bool any = false;
+    // two chunks a step, one vote for both; the steps without a hit (where
+    // SA1's time goes) run in a loop of their own
+    int k = 0;
+    while (k < padded) {
+      float da[C], db[C];
+      for (; k < padded; k += 64) {
+        const float4 qa = tile[k + lane];
+        const float4 qb = tile[k + 32 + lane];
+        bool any = false;
 #pragma unroll
-      for (int j = 0; j < C; ++j) {
-        const float cross = dot3(cx[j], cy[j], cz[j], q.x, q.y, q.z);
-        d2[j] = __fmaf_rn(-2.0f, cross, __fadd_rn(c2[j], q.w));
-        any |= d2[j] < lim[j];
-      }
-      if (!__any_sync(kFull, any)) continue;
-      const int idx = base + 32 * k + lane;
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        const bool hit = d2[j] < lim[j];
-        const unsigned mask = __ballot_sync(kFull, hit);
-        if (mask == 0u) continue;
-        if (count[j] == 0) first[j] = base + 32 * k + __ffs(static_cast<int>(mask)) - 1;
-        const int rank = count[j] + __popc(mask & lower);
-        if (hit && rank < ns) o[j * ns + rank] = idx;
-        count[j] += __popc(mask);
-        if (count[j] >= ns) {
-          lim[j] = -__int_as_float(0x7f800000);
-          live &= ~(1u << j);
+        for (int j = 0; j < C; ++j) {
+          da[j] = __fmaf_rn(-2.0f, dot3(cx[j], cy[j], cz[j], qa.x, qa.y, qa.z),
+                            __fadd_rn(c2[j], qa.w));
+          db[j] = __fmaf_rn(-2.0f, dot3(cx[j], cy[j], cz[j], qb.x, qb.y, qb.z),
+                            __fadd_rn(c2[j], qb.w));
+          any |= (da[j] < lim[j]) | (db[j] < lim[j]);
         }
+        if (__any_sync(kFull, any)) break;
       }
+      if (k >= padded) break;
+      take_hits<C>(da, lim, count, first, live, base + k, lane, ns, o);
+      take_hits<C>(db, lim, count, first, live, base + k + 32, lane, ns, o);
       if (live == 0) break;
+      k += 64;
     }
   }
   cp_async_wait<0>();     // no copy may land after the block has left
