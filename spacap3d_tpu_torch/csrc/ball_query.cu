@@ -176,30 +176,26 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ cente
     __syncthreads();      // the packed tile is in; raw[t & 1] is free
     issue_tile(raw[t & 1], p, n, t + 2);
     if (live == 0) continue;
-    // two chunks a step, one vote for both; the steps without a hit (where
-    // SA1's time goes) run in a loop of their own
-    int k = 0;
-    while (k < padded) {
+    // two chunks a step, one vote for both: the hit path is rare where
+    // the time goes (SA1)
+#pragma unroll 1
+    for (int k = 0; k < padded; k += 64) {
+      const float4 qa = tile[k + lane];
+      const float4 qb = tile[k + 32 + lane];
       float da[C], db[C];
-      for (; k < padded; k += 64) {
-        const float4 qa = tile[k + lane];
-        const float4 qb = tile[k + 32 + lane];
-        bool any = false;
+      bool any = false;
 #pragma unroll
-        for (int j = 0; j < C; ++j) {
-          da[j] = __fmaf_rn(-2.0f, dot3(cx[j], cy[j], cz[j], qa.x, qa.y, qa.z),
-                            __fadd_rn(c2[j], qa.w));
-          db[j] = __fmaf_rn(-2.0f, dot3(cx[j], cy[j], cz[j], qb.x, qb.y, qb.z),
-                            __fadd_rn(c2[j], qb.w));
-          any |= (da[j] < lim[j]) | (db[j] < lim[j]);
-        }
-        if (__any_sync(kFull, any)) break;
+      for (int j = 0; j < C; ++j) {
+        da[j] = __fmaf_rn(-2.0f, dot3(cx[j], cy[j], cz[j], qa.x, qa.y, qa.z),
+                          __fadd_rn(c2[j], qa.w));
+        db[j] = __fmaf_rn(-2.0f, dot3(cx[j], cy[j], cz[j], qb.x, qb.y, qb.z),
+                          __fadd_rn(c2[j], qb.w));
+        any |= (da[j] < lim[j]) | (db[j] < lim[j]);
       }
-      if (k >= padded) break;
+      if (!__any_sync(kFull, any)) continue;
       take_hits<C>(da, lim, count, first, live, base + k, lane, ns, o);
       take_hits<C>(db, lim, count, first, live, base + k + 32, lane, ns, o);
       if (live == 0) break;
-      k += 64;
     }
   }
   cp_async_wait<0>();     // no copy may land after the block has left
