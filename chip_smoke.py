@@ -318,9 +318,10 @@ def phase_kernels():
     for what, pts, centers, r, ns in bq_cases(rng):
         xyz, cen = torch.from_numpy(pts).to(DEV), torch.from_numpy(centers).to(DEV)
         got = bq_check(xyz, cen, r, ns, what)
+        full = float((got[..., -1] > got[..., 0]).float().mean())
         log("kernels", kernel="ball_query", case=what, shape=[*pts.shape[:2], cen.shape[1]],
             radius=r, nsample=ns, main_path=False, equal=True, two_calls_equal=True,
-            warp_centres_checked=list(ops.BQ_WARP_CENTRES), centres_full=float((got[..., -1] > got[..., 0]).float().mean()))
+            warp_centres_checked=list(ops.BQ_WARP_CENTRES), centres_full=full)
     return results
 
 

@@ -22,10 +22,11 @@
 // Bound on the H100: the pairs scanned (every point of the row before a
 // centre's ns-th hit; at SA1 on scene-like clouds almost no centre fills,
 // so all 40,000 points for each of 16,384 centres, 655 M pairs) at 8 flops
-// a pair against the f32 rate. The scan issues about 7 instructions a pair
-// (3 for c . p, the add, the fold, the compare, a vote), so what sets the
-// time is instruction issue, a floor about twice the flop bound. The
-// bytes (points, centres and indices, each once) are a few MB.
+// a pair against the f32 rate. The scan issues at least 6 instructions a
+// pair (3 for c . p, the add, the fold, the compare) beside the loads and
+// votes, so what sets the time is instruction issue, a floor about twice
+// the flop bound. The bytes (points, centres and indices, each once) are a
+// few MB.
 //
 // Design: a block takes W warps (1-16; the wrapper's launch takes 16) of C
 // centres each (C = 1, 2 or 4; the wrapper picks it, ops/ball_query.py::
@@ -48,10 +49,21 @@
 // Early exit: a centre with ns hits compares against -inf from then on and
 // a warp whose centres are all full stops scanning; the block stops
 // loading tiles once none of its centres can take another hit
-// (__syncthreads_or). C trades the shared-memory loads a pair (1 / C)
-// against the warps in flight (b m / C): C = 4 where there are centres
-// enough to keep every SM busy (SA1), fewer at the small call sites, where
-// centres fill within a few chunks and the time is latency.
+// (__syncthreads_or). C trades the instructions a pair (the loads and the
+// vote are shared by C centres) against the warps in flight (b m / C):
+// C = 4 where there are centres enough to keep every SM busy (SA1), fewer
+// at the small call sites, where centres fill within a few chunks and the
+// time is latency.
+//
+// What still holds it back (H100 80GB HBM3, 700 W; PERF.md, PR 7): at SA1
+// it takes 0.258 ms, 3.7x faster than the one-warp-a-centre kernel. Its
+// step issues 61 instructions for 8 pairs at C = 4 (cuobjdump), so at the
+// 1,980 MHz it runs at the issue floor is 0.149 ms: the kernel reaches
+// about 58% of it. SA1's 256 blocks give an SM at most two (32 warps; 62
+// registers a thread allow no more at 512 threads), and each warp waits at
+// two block barriers a tile. Untried: more chunks a vote (over 64
+// registers, so one block an SM), or a ring of packed tiles on mbarriers
+// that lets warps run without block barriers.
 #include <cuda_runtime.h>
 
 #include <cstdint>
