@@ -55,7 +55,7 @@
 // at the small call sites, where centres fill within a few chunks and the
 // time is latency.
 //
-// What still holds it back (H100 80GB HBM3, 700 W; PERF.md, PR 7): at SA1
+// What still holds it back (H100 80GB HBM3, 700 W; PERF.md, Findings): at SA1
 // it takes 0.258 ms, 3.7x faster than the one-warp-a-centre kernel. Its
 // step issues 61 instructions for 8 pairs at C = 4 (cuobjdump), so at the
 // 1,980 MHz it runs at the issue floor is 0.149 ms: the kernel reaches

@@ -33,7 +33,7 @@ BQ_WARPS = 16
 # the centres a warp holds in the kernel's builds, most first
 BQ_WARP_CENTRES = (4, 2, 1)
 # warps an SM (of the 64 it holds) below which fewer centres a warp, and so
-# more warps, are faster (PERF.md, PR 7: the sweep)
+# more warps, are faster (PERF.md §6: tools/bq_probe.py's sweep)
 BQ_MIN_WARPS_A_SM = 16
 
 
