@@ -46,12 +46,6 @@ from spacap3d_tpu_torch.train.step import eval_tail, make_eval_step, to_device_b
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# lane instructions a second: 132 SMs x 4 schedulers x 32 lanes at the
-# 1.98 GHz boost clock; the ball-query scan issues about 7 a pair (c . p 3,
-# the add, the fold, the compare, a vote): its instruction floor, beside
-# the bound
-PEAK_LANE_INSTR = 132 * 4 * 32 * 1.98e9
-BQ_INSTR_A_PAIR = 7
 
 B = 8
 DEV = "cuda"
@@ -308,7 +302,6 @@ def phase_kernels():
         hits = float((got[..., 0] != 0).float().mean())
         row = dict(shape=[B, n, m], radius=r, nsample=ns, max_abs_err=0, ms=k_ms,
                    plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                   issue_floor_ms=scanned * BQ_INSTR_A_PAIR / PEAK_LANE_INSTR * 1e3,
                    pairs_scanned=int(scanned), centres_with_hits=hits,
                    centres_full=float(full.float().mean()), two_calls_equal=True,
                    warp_centres_checked=list(ops.BQ_WARP_CENTRES),
@@ -832,7 +825,7 @@ def main() -> int:
             kernels[-1]["launch"] = [{k: r[k] for k in (
                 "shape", "nsample", "warp_centres", "warps", "centres_per_block", "blocks",
                 "tile_points", "shared_memory", "blocks_per_sm", "registers", "spill_stores",
-                "spill_loads", "issue_floor_ms")} for r in main]
+                "spill_loads")} for r in main]
         if name == "fps":   # the split, block and build of each main-path launch
             kernels[-1]["launch"] = [{k: r[k] for k in (
                 "shape", "npoint", "cluster", "threads", "points_per_thread", "shared_memory",

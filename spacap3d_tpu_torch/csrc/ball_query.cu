@@ -28,11 +28,11 @@
 // the flop bound. The bytes (points, centres and indices, each once) are a
 // few MB.
 //
-// Design: a block takes W warps (1-16; the wrapper's launch takes 16) of C
-// centres each (C = 1, 2 or 4; the wrapper picks it, ops/ball_query.py::
-// ball_query_warp_centres), all of one batch row, and walks that row's
-// points in input order in tiles of kTile points. Every tile is read from
-// L2 once per block instead of once per centre:
+// Design: a block takes kWarps warps of C centres each (C = 4 or 1; the
+// wrapper picks it, ops/ball_query.py::ball_query_warp_centres), all of one
+// batch row, and walks that row's points in input order in tiles of kTile
+// points. Every tile is read from L2 once per block instead of once per
+// centre:
 //   1. cp.async copies tile t + 2 (raw x, y, z, 4 bytes a copy, so any N
 //      and any row offset is aligned) into one of two staging buffers while
 //      the block scans tile t;
@@ -51,15 +51,16 @@
 // loading tiles once none of its centres can take another hit
 // (__syncthreads_or). C trades the instructions a pair (the loads and the
 // vote are shared by C centres) against the warps in flight (b m / C):
-// C = 4 where there are centres enough to keep every SM busy (SA1), fewer
-// at the small call sites, where centres fill within a few chunks and the
-// time is latency.
+// C = 4 where there are centres enough to keep every SM busy (SA1, SA2),
+// C = 1 at the small call sites, where centres fill within a few chunks
+// and the time is latency. 16 warps a block beat 4 and 8 at every call
+// site (PERF.md, Findings).
 //
 // What still holds it back (H100 80GB HBM3, 700 W; PERF.md, Findings): at SA1
-// it takes 0.258 ms, 3.7x faster than the one-warp-a-centre kernel. Its
+// it takes 0.256 ms, 3.8x faster than the one-warp-a-centre kernel. Its
 // step issues 61 instructions for 8 pairs at C = 4 (cuobjdump), so at the
 // 1,980 MHz it runs at the issue floor is 0.149 ms: the kernel reaches
-// about 58% of it. SA1's 256 blocks give an SM at most two (32 warps; 62
+// about 58% of it. SA1's 256 blocks give an SM at most two (32 warps; 64
 // registers a thread allow no more at 512 threads), and each warp waits at
 // two block barriers a tile. Untried: more chunks a vote (over 64
 // registers, so one block an SM), or a ring of packed tiles on mbarriers
@@ -71,7 +72,8 @@
 namespace {
 
 constexpr int kTile = 1024;         // points a tile
-constexpr int kMaxWarps = 16;       // warps a block, at most: the wrapper's launch
+constexpr int kWarps = 16;          // warps a block
+constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az,
@@ -94,7 +96,10 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Copies tile t of a row's raw x, y, z into buf and closes a cp.async group
 // (an empty one past the row's end, so that every thread's groups count
-// the tiles).
+// the tiles). This loop and the packing loop are unrolled whole at C = 4,
+// where that saves registers and time at SA1, and not at C = 1, where it
+// costs the small call sites about 10% (PERF.md, Findings).
+template <int C>
 __device__ __forceinline__ void issue_tile(float* buf, const float* __restrict__ row, int n,
                                            int t) {
   const int base = t * kTile;
@@ -102,7 +107,8 @@ __device__ __forceinline__ void issue_tile(float* buf, const float* __restrict__
     const int floats = 3 * min(kTile, n - base);
     const float* src = row + 3LL * base;
     const uint32_t dst = smem_addr(buf);
-    for (int i = threadIdx.x; i < floats; i += blockDim.x) cp_async4(dst + 4 * i, src + i);
+#pragma unroll(C == 1 ? 1 : 3 * kTile / kThreads)
+    for (int i = threadIdx.x; i < floats; i += kThreads) cp_async4(dst + 4 * i, src + i);
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -131,14 +137,14 @@ __device__ __forceinline__ void take_hits(const float (&d2)[C], float (&lim)[C],
 }
 
 template <int C>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ centers, int n,
                   int m, float r2, int ns, int* __restrict__ out) {
   __shared__ float raw[2][3 * kTile];
   __shared__ float4 tile[kTile];
   const int lane = threadIdx.x & 31;
   const long long row = blockIdx.y;
-  const int c0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * C;
+  const int c0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * C;
   const float* __restrict__ p = xyz + row * n * 3;
   int* __restrict__ o = out + (row * m + c0) * ns;
 
@@ -164,8 +170,8 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ cente
   }
 
   const int tiles = (n + kTile - 1) / kTile;
-  issue_tile(raw[0], p, n, 0);
-  issue_tile(raw[1], p, n, 1);
+  issue_tile<C>(raw[0], p, n, 0);
+  issue_tile<C>(raw[1], p, n, 1);
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait<1>();   // this thread's copies of tile t have landed
     // every thread's have, and every warp is done with tile t - 1; stop
@@ -175,7 +181,8 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ cente
     const int pts = min(kTile, n - base);
     const int padded = (pts + 63) & ~63;   // whole pairs of chunks
     const float* r = raw[t & 1];
-    for (int i = threadIdx.x; i < padded; i += blockDim.x) {
+#pragma unroll(C == 1 ? 1 : kTile / kThreads)
+    for (int i = threadIdx.x; i < padded; i += kThreads) {
       float4 v = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000));
       if (i < pts) {
         v.x = r[3 * i];
@@ -186,7 +193,7 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ cente
       tile[i] = v;
     }
     __syncthreads();      // the packed tile is in; raw[t & 1] is free
-    issue_tile(raw[t & 1], p, n, t + 2);
+    issue_tile<C>(raw[t & 1], p, n, t + 2);
     if (live == 0) continue;
     // two chunks a step, one vote for both: the hit path is rare where
     // the time goes (SA1)
@@ -226,34 +233,30 @@ using Kernel = void (*)(const float*, const float*, int, int, float, int, int*);
 Kernel kernel_for(int warp_centres) {
   switch (warp_centres) {
     case 1: return ball_query_kernel<1>;
-    case 2: return ball_query_kernel<2>;
     case 4: return ball_query_kernel<4>;
     default: return nullptr;
   }
 }
 
-bool valid_warps(int warps) { return warps >= 1 && warps <= kMaxWarps; }
-
 }  // namespace
 
-// The points a tile and the most warps a block (ops/ball_query.py mirrors
-// both).
+// The points a tile and the warps a block (ops/ball_query.py mirrors both).
 extern "C" int spacap_ball_query_tile_points() { return kTile; }
-extern "C" int spacap_ball_query_max_warps() { return kMaxWarps; }
+extern "C" int spacap_ball_query_warps() { return kWarps; }
 
-// The launch at C = warp_centres (1, 2 or 4) and `warps` warps a block:
-// shared memory a block (bytes), how many such blocks an SM holds at once,
-// and the device's SMs. Returns the cudaError_t.
-extern "C" int spacap_ball_query_launch_info(int warp_centres, int warps, int* smem,
-                                             int* blocks_per_sm, int* sms) {
+// The launch at C = warp_centres (4 or 1): shared memory a block (bytes),
+// how many such blocks an SM holds at once, and the device's SMs. Returns
+// the cudaError_t.
+extern "C" int spacap_ball_query_launch_info(int warp_centres, int* smem, int* blocks_per_sm,
+                                             int* sms) {
   const Kernel k = kernel_for(warp_centres);
-  if (k == nullptr || !valid_warps(warps)) return static_cast<int>(cudaErrorInvalidValue);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(k));
   if (err != cudaSuccess) return static_cast<int>(err);
   *smem = static_cast<int>(fa.sharedSizeBytes);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, reinterpret_cast<const void*>(k), warps * 32, 0);
+      blocks_per_sm, reinterpret_cast<const void*>(k), kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0;
   err = cudaGetDevice(&dev);
@@ -262,19 +265,16 @@ extern "C" int spacap_ball_query_launch_info(int warp_centres, int warps, int* s
 }
 
 // xyz (b, n, 3), centers (b, m, 3) f32 contiguous -> out (b, m, ns) int32,
-// with blocks of `warps` warps (1-16) of warp_centres centres each (1, 2 or
-// 4). Returns the cudaError_t of the launch.
+// with warp_centres centres a warp (4 or 1). Returns the cudaError_t of the
+// launch.
 extern "C" int spacap_ball_query(const float* xyz, const float* centers, int b, int n, int m,
-                                 float r2, int ns, int warp_centres, int warps, int* out,
-                                 void* stream) {
+                                 float r2, int ns, int warp_centres, int* out, void* stream) {
   const Kernel k = kernel_for(warp_centres);
-  if (b <= 0 || n <= 0 || m <= 0 || ns <= 0 || b > 65535 || k == nullptr ||
-      !valid_warps(warps))
+  if (b <= 0 || n <= 0 || m <= 0 || ns <= 0 || b > 65535 || k == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int per_block = warps * warp_centres;
+  const int per_block = kWarps * warp_centres;
   const dim3 grid(static_cast<unsigned>((m + per_block - 1) / per_block),
                   static_cast<unsigned>(b));
-  k<<<grid, warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(xyz, centers, n, m, r2, ns,
-                                                                 out);
+  k<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(xyz, centers, n, m, r2, ns, out);
   return static_cast<int>(cudaGetLastError());
 }

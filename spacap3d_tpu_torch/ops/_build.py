@@ -130,14 +130,13 @@ def library() -> ctypes.CDLL:
     lib.spacap_fps_block_points.restype = i32
     lib.spacap_fps_launch_info.argtypes = [i32, i32, i32, i32p, i32p, i32p, i32p]
     lib.spacap_fps_launch_info.restype = i32
-    lib.spacap_ball_query.argtypes = [vp, vp, i32, i32, i32, ctypes.c_float,
-                                      i32, i32, i32, vp, vp]
+    lib.spacap_ball_query.argtypes = [vp, vp, i32, i32, i32, ctypes.c_float, i32, i32, vp, vp]
     lib.spacap_ball_query.restype = i32
     lib.spacap_ball_query_tile_points.argtypes = []
     lib.spacap_ball_query_tile_points.restype = i32
-    lib.spacap_ball_query_max_warps.argtypes = []
-    lib.spacap_ball_query_max_warps.restype = i32
-    lib.spacap_ball_query_launch_info.argtypes = [i32, i32, i32p, i32p, i32p]
+    lib.spacap_ball_query_warps.argtypes = []
+    lib.spacap_ball_query_warps.restype = i32
+    lib.spacap_ball_query_launch_info.argtypes = [i32, i32p, i32p, i32p]
     lib.spacap_ball_query_launch_info.restype = i32
     lib.spacap_generator_argmax.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp, vp]
     lib.spacap_generator_argmax.restype = i32

@@ -26,15 +26,16 @@ import torch
 from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.ops._f32 import dot3
 
-# csrc/ball_query.cu kTile and kMaxWarps: points a tile, and the warps a
-# block of the wrapper's launch
+# csrc/ball_query.cu kTile and kWarps: points a tile, and warps a block
 BQ_TILE_POINTS = 1024
 BQ_WARPS = 16
 # the centres a warp holds in the kernel's builds, most first
-BQ_WARP_CENTRES = (4, 2, 1)
-# warps an SM (of the 64 it holds) below which fewer centres a warp, and so
-# more warps, are faster (PERF.md §6: tools/bq_probe.py's sweep)
-BQ_MIN_WARPS_A_SM = 16
+BQ_WARP_CENTRES = (4, 1)
+# warps an SM (of the 64 it holds) below which one centre a warp, and so
+# four times the warps, is faster: tools/bq_probe.py's sweep puts the
+# crossover between SA3's 7.8 and SA2's 15.5 warps an SM at C = 4
+# (PERF.md §6), and this takes the middle
+BQ_MIN_WARPS_A_SM = 12
 
 
 def radius_sq(radius: float) -> float:
@@ -70,10 +71,10 @@ def ball_query_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
     return out
 
 
-def ball_query_blocks(b: int, m: int, warp_centres: int, warps: int = BQ_WARPS) -> int:
+def ball_query_blocks(b: int, m: int, warp_centres: int) -> int:
     """Blocks of the kernel's grid: each of the b rows' m centres in blocks
-    of ``warps * warp_centres``."""
-    return b * -(-m // (warps * warp_centres))
+    of ``BQ_WARPS * warp_centres``."""
+    return b * -(-m // (BQ_WARPS * warp_centres))
 
 
 def ball_query_warp_centres(b: int, m: int, sms: int) -> int:
@@ -85,10 +86,11 @@ def ball_query_warp_centres(b: int, m: int, sms: int) -> int:
                 BQ_WARP_CENTRES[-1])
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The kernel library, whose tile and block must be the ones above."""
     lib = _build.library()
-    built = (lib.spacap_ball_query_tile_points(), lib.spacap_ball_query_max_warps())
+    built = (lib.spacap_ball_query_tile_points(), lib.spacap_ball_query_warps())
     if built != (BQ_TILE_POINTS, BQ_WARPS):
         raise RuntimeError(f"ball_query: csrc/ball_query.cu has (tile, warps) = {built}, "
                            f"ops/ball_query.py assumes {(BQ_TILE_POINTS, BQ_WARPS)}")
@@ -96,18 +98,17 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def ball_query_launch_info(device_index: int, warp_centres: int,
-                           warps: int = BQ_WARPS) -> dict:
-    """The kernel's launch with ``warps`` warps a block of ``warp_centres``
-    centres each on CUDA device ``device_index``: centres a block, points a
-    tile, shared memory a block (bytes), blocks an SM holds at once, and
-    the device's SMs."""
+def ball_query_launch_info(device_index: int, warp_centres: int) -> dict:
+    """The kernel's launch at ``warp_centres`` centres a warp on CUDA
+    device ``device_index``: warps and centres a block, points a tile,
+    shared memory a block (bytes), blocks an SM holds at once, and the
+    device's SMs."""
     out = [ctypes.c_int() for _ in range(3)]
     with torch.cuda.device(device_index):
-        err = _library().spacap_ball_query_launch_info(warp_centres, warps,
-                                                       *map(ctypes.byref, out))
+        err = _library().spacap_ball_query_launch_info(warp_centres, *map(ctypes.byref, out))
     _build.check(err, "ball_query launch info")
-    return dict(warp_centres=warp_centres, warps=warps, centres_per_block=warps * warp_centres,
+    return dict(warp_centres=warp_centres, warps=BQ_WARPS,
+                centres_per_block=BQ_WARPS * warp_centres,
                 tile_points=BQ_TILE_POINTS,
                 **dict(zip(("shared_memory", "blocks_per_sm", "sms"), (o.value for o in out))))
 
@@ -120,10 +121,9 @@ def ball_query_default_warp_centres(device_index: int, b: int, m: int) -> int:
 
 
 def launch_ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float, nsample: int,
-                      warp_centres: int, warps: int = BQ_WARPS) -> torch.Tensor:
-    """One launch of the kernel on contiguous CUDA tensors, with blocks of
-    ``warps`` warps (other than ``BQ_WARPS`` only for measurements) of
-    ``warp_centres`` centres each. Counts no launch: ``ball_query`` does."""
+                      warp_centres: int) -> torch.Tensor:
+    """One launch of the kernel on contiguous CUDA tensors at
+    ``warp_centres`` centres a warp. Counts no launch: ``ball_query`` does."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     lib = _library()
@@ -131,9 +131,9 @@ def launch_ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float, n
         out = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
         err = lib.spacap_ball_query(
             xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, radius_sq(radius), nsample,
-            warp_centres, warps, out.data_ptr(),
+            warp_centres, out.data_ptr(),
             torch.cuda.current_stream(xyz.device).cuda_stream)
-    _build.check(err, f"ball_query ({warp_centres} centres a warp, {warps} warps a block)")
+    _build.check(err, f"ball_query ({warp_centres} centres a warp)")
     return out
 
 

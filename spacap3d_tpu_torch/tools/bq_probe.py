@@ -7,22 +7,24 @@ Prints JSON lines:
 * ``sweep``: the kernel's device time per call (CUDA events around
   back-to-back calls, queued behind a device sleep) at the five shapes of
   the eval forward (SA1-SA4, vote aggregation; B = 8 scene-like clouds),
-  over the centres a warp holds (1, 2, 4) and the warps a block has (4,
-  8, 16), each launch index-equal to the plain version; with ptxas's
-  registers and spills per build and the centres a warp the wrapper picks.
-* ``parent`` (with ``--parent``): a ball-query source with the earlier C
-  interface ``spacap_ball_query(xyz, centers, b, n, m, r2, ns, out,
-  stream)`` built alone into a second library, timed against the wrapper in
-  turns (old, new, new, old, three times) at the five shapes, both
-  index-equal to the plain version.
-* ``variant`` (with ``--variant``): the same for a source with this
-  kernel's C interface, launched as the wrapper launches.
+  at each build (4 or 1 centres a warp), each launch index-equal to the
+  plain version; with ptxas's registers and spills per build, the centres
+  a warp the wrapper picks and the pairs the data needs scanned (every
+  point up to a centre's ns-th hit).
 * ``sass``: each build's scan step as ``cuobjdump -sass`` prints it: the
   instructions of the loop that a step without a hit runs (from the loop
   head to the vote and its branch, and the loop's latch), and so a pair.
 * ``clock``: the SM clock and power that ``nvidia-smi`` samples while the
   wrapper runs SA1 back to back for about two seconds, and the lane
-  instructions a second the scan step then issues.
+  instructions a second the card then issues (its SMs x 4 schedulers x 32
+  lanes at the median clock).
+* ``floor``: each shape's instruction-issue floor: its pairs scanned at
+  the instructions a pair of the wrapper's build, over that rate.
+* ``parent`` (with ``--parent``): a ball-query source with the earlier C
+  interface ``spacap_ball_query(xyz, centers, b, n, m, r2, ns, out,
+  stream)`` built alone into a second library, timed against the wrapper in
+  turns (old, new, new, old, three times) at the five shapes, both
+  index-equal to the plain version.
 """
 import argparse
 import ctypes
@@ -45,8 +47,6 @@ B = 8
 # (N, m, r, ns): SA1-SA4 and vote aggregation
 SHAPES = [(40000, 2048, 0.2, 64), (2048, 1024, 0.4, 32), (1024, 512, 0.8, 16),
           (512, 256, 1.2, 16), (1024, 256, 0.3, 16)]
-WARP_CENTRES = (1, 2, 4)
-WARPS = (4, 8, 16)
 
 
 def cloud(rng, n, m):
@@ -63,43 +63,45 @@ def reps_for(n):
 
 
 def sweep(rng):
+    """Times each build at each shape; returns (centres a warp the wrapper
+    takes, pairs scanned) by shape."""
     _build.library()
     ptxas = _build.ptxas_info()
     regs = {c: next(({k: v.get(k) for k in ("registers", "spill_stores", "spill_loads")}
                      for name, v in ptxas.items() if f"ball_query_kernelILi{c}E" in name), None)
-            for c in WARP_CENTRES}
+            for c in ops.BQ_WARP_CENTRES}
     print(json.dumps({"probe": "build", "ptxas": regs}), flush=True)
     dev = torch.cuda.current_device()
+    picked = {}
     for n, m, r, ns in SHAPES:
         xyz, cen = cloud(rng, n, m)
         want = ops.ball_query_plain(xyz, cen, r, ns)
         ms = {}
-        for c in WARP_CENTRES:
-            for w in WARPS:
-                if not torch.equal(launch_ball_query(xyz, cen, r, ns, c, w), want):
-                    raise AssertionError(f"ball_query N={n} m={m} C={c} W={w}: != plain")
-                ms[f"C{c}_W{w}"] = device_us(
-                    lambda: launch_ball_query(xyz, cen, r, ns, c, w), reps=reps_for(n)) / 1e3
-        best = min(ms, key=ms.get)
+        for c in ops.BQ_WARP_CENTRES:
+            if not torch.equal(launch_ball_query(xyz, cen, r, ns, c), want):
+                raise AssertionError(f"ball_query N={n} m={m} C={c}: != plain")
+            ms[f"C{c}"] = device_us(lambda: launch_ball_query(xyz, cen, r, ns, c),
+                                    reps=reps_for(n)) / 1e3
+        full = want[..., -1] > want[..., 0]
+        scanned = int(torch.where(full, want[..., -1].long() + 1, n).sum().item())
+        c = ops.ball_query_default_warp_centres(dev, B, m)
+        picked[n, m] = c, scanned
         print(json.dumps({"probe": "sweep", "b": B, "n": n, "m": m, "radius": r, "nsample": ns,
-                          "wrapper_warp_centres": ops.ball_query_default_warp_centres(dev, B, m),
-                          "best": best, "ms": ms, "equal": True}), flush=True)
-
-
-def other_library(src, name):
-    """Another ball-query source, built alone with the wrapper's flags."""
-    out = _build.BUILD_DIR / "other"
-    out.mkdir(parents=True, exist_ok=True)
-    lib_path = out / f"lib{name}_ball_query.so"
-    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, *_build.CFLAGS, "-shared", src,
-                    "-o", str(lib_path)], check=True, capture_output=True)
-    return ctypes.CDLL(str(lib_path))
+                          "wrapper_warp_centres": c, "best": min(ms, key=ms.get), "ms": ms,
+                          "pairs_scanned": scanned, "equal": True}), flush=True)
+    return picked
 
 
 def parent_fn(src):
     """The kernel of an earlier source with the one-warp-a-centre interface
-    spacap_ball_query(xyz, centers, b, n, m, r2, ns, out, stream)."""
-    lib = other_library(src, "parent")
+    spacap_ball_query(xyz, centers, b, n, m, r2, ns, out, stream), built
+    alone with the wrapper's flags."""
+    out = _build.BUILD_DIR / "other"
+    out.mkdir(parents=True, exist_ok=True)
+    lib_path = out / "libparent_ball_query.so"
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, *_build.CFLAGS, "-shared", src,
+                    "-o", str(lib_path)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.spacap_ball_query.argtypes = [vp, vp, i32, i32, i32, ctypes.c_float, i32, vp, vp]
     lib.spacap_ball_query.restype = i32
@@ -115,32 +117,10 @@ def parent_fn(src):
     return run
 
 
-def variant_fn(src):
-    """The kernel of another source with this one's interface, at the
-    centres a warp and warps a block the wrapper picks."""
-    lib = other_library(src, "variant")
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.spacap_ball_query.argtypes = [vp, vp, i32, i32, i32, ctypes.c_float, i32, i32, i32,
-                                      vp, vp]
-    lib.spacap_ball_query.restype = i32
-
-    def run(xyz, cen, r, ns):
-        b, n, _ = xyz.shape
-        m = cen.shape[1]
-        c = ops.ball_query_default_warp_centres(xyz.device.index, b, m)
-        out = torch.empty((b, m, ns), dtype=torch.int32, device=xyz.device)
-        _build.check(lib.spacap_ball_query(xyz.data_ptr(), cen.data_ptr(), b, n, m,
-                                           radius_sq(r), ns, c, ops.BQ_WARPS, out.data_ptr(),
-                                           torch.cuda.current_stream().cuda_stream),
-                     "variant ball_query")
-        return out
-    return run
-
-
-def in_turns(rng, name, other):
-    """``other`` and the wrapper in turns (other, change, change, other,
+def in_turns(rng, parent):
+    """``parent`` and the wrapper in turns (parent, change, change, parent,
     three times) at the five shapes, both index-equal to the plain version."""
-    fns = {name: other, "change": ops.ball_query}
+    fns = {"parent": parent, "change": ops.ball_query}
     for n, m, r, ns in SHAPES:
         xyz, cen = cloud(rng, n, m)
         want = ops.ball_query_plain(xyz, cen, r, ns)
@@ -148,9 +128,9 @@ def in_turns(rng, name, other):
             if not torch.equal(fn(xyz, cen, r, ns), want):
                 raise AssertionError(f"{key} ball_query N={n} m={m}: != plain")
         ms = {key: [] for key in fns}
-        for key in [name, "change", "change", name] * 3:
+        for key in ["parent", "change", "change", "parent"] * 3:
             ms[key].append(device_us(lambda: fns[key](xyz, cen, r, ns), reps=reps_for(n)) / 1e3)
-        print(json.dumps({"probe": name, "b": B, "n": n, "m": m, "radius": r, "nsample": ns,
+        print(json.dumps({"probe": "parent", "b": B, "n": n, "m": m, "radius": r, "nsample": ns,
                           "ms": ms, "median_ms": {k: float(np.median(v)) for k, v in ms.items()},
                           "equal": True}), flush=True)
 
@@ -177,20 +157,25 @@ def step_instructions(func):
 
 
 def sass():
+    """Returns the instructions a pair by build."""
     lib = Path(_build.library()._name)
     text = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     funcs = re.split(r"\n\s*Function : ", text)
-    for c in WARP_CENTRES:
+    per_pair = {}
+    for c in ops.BQ_WARP_CENTRES:
         func = next(f for f in funcs if f.startswith("_Z") and f"ball_query_kernelILi{c}E" in
                     f.split("\n", 1)[0])
         n = step_instructions(func.splitlines())
+        per_pair[c] = n / (2 * c)
         print(json.dumps({"probe": "sass", "warp_centres": c, "step_instructions": n,
-                          "pairs_a_step": 2 * c, "instructions_a_pair": n / (2 * c)}),
+                          "pairs_a_step": 2 * c, "instructions_a_pair": per_pair[c]}),
               flush=True)
+    return per_pair
 
 
 def clock(rng):
+    """Returns the lane instructions a second at the median SM clock."""
     n, m, r, ns = SHAPES[0]
     xyz, cen = cloud(rng, n, m)
     ops.ball_query(xyz, cen, r, ns)
@@ -216,19 +201,19 @@ def clock(rng):
     mhz = [a for a, _ in samples[5:-1]] or [a for a, _ in samples]
     watts = [b for _, b in samples[5:-1]] or [b for _, b in samples]
     ms = s.elapsed_time(e) / calls
+    sms = torch.cuda.get_device_properties(xyz.device).multi_processor_count
+    rate = sms * 4 * 32 * float(np.median(mhz)) * 1e6
     print(json.dumps({"probe": "clock", "n": n, "m": m, "calls": calls, "ms": ms,
                       "sm_clock_mhz": [min(mhz), float(np.median(mhz)), max(mhz)],
-                      "power_w": [min(watts), float(np.median(watts)), max(watts)],
-                      "lane_instructions_a_second_at_the_median_clock":
-                      132 * 128 * float(np.median(mhz)) * 1e6}), flush=True)
+                      "power_w": [min(watts), float(np.median(watts)), max(watts)], "sms": sms,
+                      "lane_instructions_a_second_at_the_median_clock": rate}), flush=True)
+    return rate
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="an earlier csrc/ball_query.cu (one warp a centre) to "
                     "time in turns")
-    ap.add_argument("--variant", help="another csrc/ball_query.cu with this interface to time "
-                    "in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bq_probe: CUDA is not available", file=sys.stderr)
@@ -238,13 +223,15 @@ def main() -> int:
     print(json.dumps({"probe": "device", "nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
     rng = np.random.RandomState(0)
-    sweep(rng)
-    sass()
-    clock(rng)
+    picked = sweep(rng)
+    per_pair = sass()
+    rate = clock(rng)
+    for (n, m), (c, scanned) in picked.items():
+        print(json.dumps({"probe": "floor", "n": n, "m": m, "warp_centres": c,
+                          "pairs_scanned": scanned, "instructions_a_pair": per_pair[c],
+                          "issue_floor_ms": scanned * per_pair[c] / rate * 1e3}), flush=True)
     if args.parent:
-        in_turns(rng, "parent", parent_fn(args.parent))
-    if args.variant:
-        in_turns(rng, "variant", variant_fn(args.variant))
+        in_turns(rng, parent_fn(args.parent))
     return 0
 
 

@@ -121,8 +121,8 @@ def test_points_on_the_radius_boundary(rng, radius):
 
 @pytest.mark.parametrize("b,m,sms,want", [
     (8, 2048, 132, 4),      # SA1: 4,096 warps of 4 centres, 31 an SM
-    (8, 1024, 132, 2),      # SA2: 4 centres a warp would leave 15.5 warps an SM
-    (8, 512, 132, 1),       # SA3
+    (8, 1024, 132, 4),      # SA2: 2,048 warps of 4 centres, 15.5 an SM
+    (8, 512, 132, 1),       # SA3: 4 centres a warp would leave 7.8 warps an SM
     (8, 256, 132, 1),       # SA4 and vote aggregation
     (1, 16, 132, 1),        # no C leaves enough warps: the fewest centres
     (64, 2048, 132, 4),
@@ -163,6 +163,6 @@ def _smem_bytes():
 def test_tile_warps_and_builds_match_the_kernel_source():
     src = (_build.CSRC / "ball_query.cu").read_text()
     assert f"constexpr int kTile = {ops.BQ_TILE_POINTS};" in src
-    assert f"constexpr int kMaxWarps = {ops.BQ_WARPS};" in src
+    assert f"constexpr int kWarps = {ops.BQ_WARPS};" in src
     built = sorted(int(c) for c in re.findall(r"case (\d+): return ball_query_kernel<\1>;", src))
     assert built == sorted(ops.BQ_WARP_CENTRES)
