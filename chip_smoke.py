@@ -16,8 +16,12 @@ empty cluster ranks), drives the eval forward at full width
 (default ModelConfig, B=8, 40,000 points) through ``make_eval_step``,
 unfused and with ``eval_decode_fused`` (the fused decode kernels), checks
 that each forward launched its kernels,
-compares the two forwards' tokens and times them in alternation, and
-compares the port on the CPU with the port on the card at a reduced size.
+compares the two forwards' tokens and times them in alternation, drives
+the train step at full width (``make_train_step``: TrainConfig(), B=8,
+40,000 points, dropout from a seeded CUDA generator) for 13 steps on one
+batch, with its launch counts, finite losses and gradients, a falling loss
+and its time, and compares the port on the CPU with the port on the card
+at a reduced size, for the eval forward and for a train step.
 Exits non-zero if any phase fails or if CUDA is missing. Prints a line per
 phase, a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 """
@@ -34,12 +38,21 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from spacap3d_tpu_torch import ops
-from spacap3d_tpu_torch.config import SOS_ID, ModelConfig
+from spacap3d_tpu_torch.config import SOS_ID, ModelConfig, TrainConfig
+from spacap3d_tpu_torch.data.synthetic import train_batch
 from spacap3d_tpu_torch.models import init_spacap
+from spacap3d_tpu_torch.models.core import BatchNorm
 from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.ops.ball_query import launch_ball_query
 from spacap3d_tpu_torch.tools.fps_probe import fps_capped
-from spacap3d_tpu_torch.train.step import eval_tail, make_eval_step, to_device_batch
+from spacap3d_tpu_torch.train.losses import get_scene_cap_loss
+from spacap3d_tpu_torch.train.step import (
+    eval_tail,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+    to_device_batch,
+)
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, dense
 # bf16 on the tensor cores, HBM3
@@ -61,6 +74,24 @@ GEN_SHAPES = [(2048, 4528, True), (2000, 4500, False)]   # (R, vocab, on the mai
 FFN_SHAPES = [(2048, 128, 2048, True), (2000, 128, 2048, False),
               (2000, 256, 1040, False), (2048, 64, 2048, False)]
 D_MODEL = 128
+# a train step's launches: the trunk's FPS and ball query, no decode kernel
+TRAIN_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+# CPU against GPU, one train step at dropout 0. Each loss within 5e-4 of
+# max(|loss|, 1): PARITY.md's trunk tolerance, 5e-4 absolute on the outputs
+# the terms are taken of, so a small term (one positive proposal's heading
+# residual) is held absolutely. Gradients: each leaf's largest difference
+# as a share of its largest entry, floored at 1e-4 of the largest entry of
+# all leaves (leaves that are zero up to rounding: attention key biases,
+# biases ahead of a train-mode BN); the median share within 1e-4 and the
+# largest within 2e-2. The two sides' forwards differ by rounding, so a
+# neighbour max-pool may pick another of two near-equal neighbours (logged
+# as argmax flips). A flip sends a row's gradient to another neighbour, so
+# it moves the leaves it feeds and every leaf upstream of its SA module by
+# up to a few 1e-3 of their largest entry; a wrong backward moves a leaf
+# by its own size.
+TRAIN_LOSS_TOL = 5e-4
+TRAIN_GRAD_MEDIAN, TRAIN_GRAD_SHARE, TRAIN_GRAD_FLOOR = 1e-4, 2e-2, 1e-4
 # the kernels whose device time the forward's profile reports, by kernel name
 PROFILED = {"fps": "fps_kernel", "ball_query": "ball_query_kernel",
             "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel"}
@@ -722,8 +753,11 @@ def device_profile(fn, want, tries=3):
             t0 = time.perf_counter()
             fn()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        # kernels and copies; not the ranges that annotate them (the
+        # optimizer's step is one)
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in p.events()
-                       if e.device_type == DeviceType.CUDA)
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False))
         counted = {k: sum(pat in name for _, _, name in spans) for k, pat in PROFILED.items()}
         if counted == want:
             break
@@ -773,6 +807,196 @@ def phase_cpu_vs_gpu():
         raise AssertionError("CPU and GPU trunk floats differ by more than 5e-4")
 
 
+def bn_buffers(model):
+    """Copies of every BN's running mean and variance, by buffer name."""
+    return {f"{n}.{k}": getattr(m, k).clone() for n, m in model.named_modules()
+            if isinstance(m, BatchNorm) for k in ("running_mean", "running_var")}
+
+
+def split_train_once(cfg, tc, model, opt, dev_batch, gen, splits):
+    """Coarse split of one train step (the parts of ``make_train_step``),
+    CUDA events around each part."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    model.train()
+    ep = model.train_forward(dev_batch, gen, 0.1)
+    ev[1].record()
+    ep = get_scene_cap_loss(ep, model.mean_size_arr, cfg.num_heading_bin, cfg.num_size_cluster,
+                            use_relation=tc.use_relation and cfg.check_relation)
+    ev[2].record()
+    model.zero_grad(set_to_none=True)
+    ep["loss"].backward()
+    ev[3].record()
+    opt.step()
+    ev[4].record()
+    torch.cuda.synchronize()
+    for j, name in enumerate(splits):
+        splits[name].append(ev[j].elapsed_time(ev[j + 1]))
+
+
+def phase_train_step():
+    """The full-width train step: default ModelConfig, TrainConfig(), B=8,
+    ``train_batch`` at 40,000 points, seeded weights and a seeded CUDA
+    dropout generator (rate 0.1). The first step is the counted run (every
+    count set to 0 just before); 3 warm-up steps, then 10 timed, each
+    ending in a synchronise and launching FPS 2, ball query 5 and the
+    decode kernels 0 times. Gates: finite losses and metrics, every
+    parameter's gradient finite and not zero over the run,
+    ``mean_size_arr`` unchanged, every BN's running stats moved, and the
+    best loss of the second half below the first step's."""
+    cfg, tc = ModelConfig(), TrainConfig()
+    batch = to_device_batch(train_batch(cfg, B, seed=0), torch.device(DEV))
+    model = init_spacap(cfg, seed=0, device=DEV)
+    opt, sched = make_optimizer(model, tc, steps_per_epoch=1000)
+    step = make_train_step(cfg, tc, opt, device=DEV, scheduler=sched)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    msa, bn0 = model.mean_size_arr.clone(), bn_buffers(model)
+    params = list(model.named_parameters())
+    seen = torch.zeros(len(params), device=DEV)     # largest |g| of each leaf over the run
+    finite = torch.ones(len(params), dtype=torch.bool, device=DEV)
+    losses, times, last = [], [], {}
+
+    def run():
+        before = {k: f.launches for k, f in KERNELS.items()}
+        metrics = step(model, batch, gen, 0.1)
+        torch.cuda.synchronize()
+        got = {k: f.launches - before[k] for k, f in KERNELS.items()}
+        if got != TRAIN_WANT:
+            raise AssertionError(f"train step launched {got}, want {TRAIN_WANT}")
+        return metrics
+
+    def check(metrics):
+        nonlocal seen, finite
+        missing = [n for n, p in params if p.grad is None]
+        if missing:
+            raise AssertionError(f"no gradient: {missing[:5]}")
+        norms = torch.stack(torch._foreach_norm([p.grad for _, p in params], float("inf")))
+        seen = torch.maximum(seen, torch.nan_to_num(norms, nan=0.0))
+        finite &= torch.isfinite(norms)
+        bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+        if bad:
+            raise AssertionError(f"non-finite metrics {bad}")
+        losses.append(float(metrics["loss"]))
+        last.update({k: float(v) for k, v in metrics.items()})
+
+    for k in KERNELS.values():     # the counted run
+        k.launches = 0
+    check(run())
+    launches = {k: f.launches for k, f in KERNELS.items()}
+    for _ in range(TRAIN_WARMUP - 1):
+        check(run())
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        metrics = run()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(metrics)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    splits = {"forward": [], "loss": [], "backward": [], "optimizer": []}
+    for _ in range(3):
+        split_train_once(cfg, tc, model, opt, batch, gen, splits)
+    prof = device_profile(run, TRAIN_WANT)
+    med = float(np.median(times))
+    if "device_busy_ms" in prof:
+        prof["device_busy_share"] = prof["device_busy_ms"] / med
+    half = len(losses) // 2
+    zero = [n for (n, _), v in zip(params, seen.tolist()) if v == 0.0]
+    nonfinite = [n for (n, _), ok in zip(params, finite.tolist()) if not ok]
+    bn_still = [n for n, b in bn_buffers(model).items() if torch.equal(b, bn0[n])]
+    log("train_step", batch=B, num_points=cfg.num_points, proposals=cfg.num_proposals,
+        dropout=cfg.transformer_dropout, lr=tc.lr, transformer_lr=tc.transformer_lr, wd=tc.wd,
+        launches=launches, warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_TIMED,
+        step_ms=med, step_ms_all=times, train_scenes_per_s=B / (med / 1e3),
+        split_ms={k: float(np.median(v)) for k, v in splits.items()}, split_ms_all=splits,
+        device_busy_ms=prof.get("device_busy_ms"), device_spans=prof.get("device_spans"),
+        device_busy_share=prof.get("device_busy_share"),
+        fps_device_ms=prof.get("kernel_device_ms", {}).get("fps"),
+        ball_query_device_ms=prof.get("kernel_device_ms", {}).get("ball_query"),
+        peak_mem_gib=peak, losses=losses, first_loss=losses[0],
+        best_second_half=min(losses[half:]), last_metrics=last, parameters=len(params),
+        grads_zero_over_run=zero, grads_nonfinite=nonfinite, bn_buffers=len(bn0),
+        bn_buffers_unmoved=bn_still, mean_size_arr_unchanged=bool(torch.equal(
+            model.mean_size_arr, msa)))
+    log("profile", path="train_step", **prof)
+    if zero or nonfinite:
+        raise AssertionError(f"gradients zero over the run {zero[:5]} or non-finite "
+                             f"{nonfinite[:5]}")
+    if bn_still or not torch.equal(model.mean_size_arr, msa):
+        raise AssertionError(f"BN stats that did not move {bn_still[:5]}, or mean_size_arr "
+                             f"changed")
+    if not min(losses[half:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    return launches
+
+
+def phase_cpu_vs_gpu_train():
+    """One train step on the CPU and on the card from the same weights and
+    batch at the reduced size, dropout 0: equal SA1 and aggregation FPS
+    and ball-query indices, the losses within TRAIN_LOSS_TOL, the
+    gradient leaves' shares within TRAIN_GRAD_MEDIAN (median) and
+    TRAIN_GRAD_SHARE (largest). Logs the neighbour max-pools' argmax
+    flips."""
+    cfg = dataclasses.replace(ModelConfig(), num_points=8192, num_proposals=64,
+                              transformer_dropout=0.0)
+    tc = TrainConfig()
+    batch = train_batch(cfg, 2, seed=1)
+    models = {"cpu": init_spacap(cfg, seed=1, device="cpu")}
+    models[DEV] = copy.deepcopy(models["cpu"]).to(DEV)
+    pools = {f"sa{i}": f"backbone_net.sa{i}.mlp_module" for i in range(1, 5)}
+    pools["aggregation"] = "proposal.vote_aggregation.mlp_module"
+    out = {}
+    for dev, model in models.items():
+        dev_batch = to_device_batch(batch, torch.device(dev))
+        pooled = {}
+        hooks = [model.get_submodule(path).register_forward_hook(
+            lambda m, i, o, k=k: pooled.__setitem__(k, o.argmax(2).cpu()))
+            for k, path in pools.items()]
+        with torch.no_grad():
+            ep = model.train().train_forward(dev_batch)
+        for h in hooks:
+            h.remove()
+            xyz = dev_batch["point_clouds"][..., :3].contiguous()
+            idx = {"sa1_fps": ep["sa1_inds"], "aggregation_fps": ep["aggregated_vote_inds"],
+                   "sa1_ball_query": ops.ball_query(xyz, ep["sa1_xyz"], cfg.sa_radii[0],
+                                                    cfg.sa_nsamples[0]),
+                   "aggregation_ball_query": ops.ball_query(
+                       ep["vote_xyz"].contiguous(), ep["aggregated_vote_xyz"], cfg.agg_radius,
+                       cfg.agg_nsample)}
+        opt, _ = make_optimizer(model, tc, steps_per_epoch=1)
+        metrics = make_train_step(cfg, tc, opt, device=dev)(model, batch)
+        out[dev] = {"idx": {k: v.cpu() for k, v in idx.items()}, "pooled": pooled,
+                    "metrics": {k: float(v) for k, v in metrics.items()},
+                    "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}
+    c, g = out["cpu"], out[DEV]
+    equal = {k: bool(torch.equal(c["idx"][k], g["idx"][k])) for k in c["idx"]}
+    err = {k: abs(g["metrics"][k] - v) / max(abs(v), 1.0) for k, v in c["metrics"].items()
+           if k.endswith("loss")}
+    flips = {k: int((c["pooled"][k] != g["pooled"][k]).sum()) for k in pools}
+    top = max(float(v.abs().max()) for v in c["grads"].values())
+    share = {n: float((g["grads"][n] - v).abs().max()) / max(float(v.abs().max()),
+                                                             TRAIN_GRAD_FLOOR * top)
+             for n, v in c["grads"].items()}
+    worst = sorted(share.items(), key=lambda kv: -kv[1])[:5]
+    median = float(np.median(list(share.values())))
+    log("cpu_vs_gpu_train", batch=2, num_points=cfg.num_points, proposals=cfg.num_proposals,
+        indices_equal=equal, loss_err=err, max_loss_err=max(err.values()),
+        loss_cpu=c["metrics"]["loss"], loss_gpu=g["metrics"]["loss"],
+        pos_ratio=c["metrics"]["pos_ratio"], relation_loss=c["metrics"]["relation_loss"],
+        maxpool_argmax_flips=flips, maxpool_outputs={k: v.numel() for k, v in c["pooled"].items()},
+        grad_leaves=len(share), grad_share_worst=worst, grad_share_median=median,
+        leaves_above_1e3=sum(v > 1e-3 for v in share.values()), loss_tol=TRAIN_LOSS_TOL,
+        grad_median_tol=TRAIN_GRAD_MEDIAN, grad_share_tol=TRAIN_GRAD_SHARE,
+        grad_floor=TRAIN_GRAD_FLOOR)
+    if not all(equal.values()):
+        raise AssertionError(f"CPU and GPU train-forward indices differ: {equal}")
+    if max(err.values()) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"CPU and GPU losses differ beyond {TRAIN_LOSS_TOL}: {err}")
+    if median > TRAIN_GRAD_MEDIAN or worst[0][1] > TRAIN_GRAD_SHARE:
+        raise AssertionError(f"CPU and GPU gradients differ beyond {TRAIN_GRAD_MEDIAN} (median "
+                             f"share of a leaf's largest entry) or {TRAIN_GRAD_SHARE} (largest): "
+                             f"median {median}, worst {worst}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -793,7 +1017,9 @@ def main() -> int:
     per_shape = phase_kernels()
     per_shape.update(phase_decode_kernels())
     launches = phase_eval_forward()
+    train_launches = phase_train_step()
     phase_cpu_vs_gpu()
+    phase_cpu_vs_gpu_train()
 
     meta = {
         "fps": ("spacap3d_tpu_torch/csrc/fps.cu", "spacap3d_tpu/ops/fps_pallas.py:35"),
@@ -813,6 +1039,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
+            "train_launches": train_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),

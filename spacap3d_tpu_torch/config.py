@@ -1,8 +1,9 @@
-"""Model configuration and token ids for the PyTorch port.
+"""Model and train configuration and token ids for the PyTorch port.
 
-A copy of the JAX package's ``ModelConfig`` (same field names, same
-defaults), so that a config serialised by either package builds the same
-architecture in the other. The port imports nothing of ``spacap3d_tpu``.
+Copies of the JAX package's ``ModelConfig`` and ``TrainConfig`` (same field
+names, same defaults), so that a config serialised by either package builds
+the same architecture and schedule in the other. The port imports nothing
+of ``spacap3d_tpu``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ EOS_ID = 3
 
 MAX_DES_LEN = 30          # max caption tokens (excluding sos/eos)
 MAX_NUM_OBJ = 128         # max GT objects per scene
+GT_VOTE_FACTOR = 3        # replicated GT votes per point
+DEFAULT_SEED = 42
 
 
 @dataclass(frozen=True)
@@ -83,3 +86,25 @@ class ModelConfig:
     @property
     def size_decoded(self) -> bool:
         return self.src_pos_type == "loc"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 8
+    epoch: int = 50
+    lr: float = 1e-3
+    transformer_lr: float = 1e-3
+    wd: float = 1e-5
+    seed: int = DEFAULT_SEED
+    val_step: int = 2000
+    verbose: int = 1000
+    criterion: str = "cider"
+    no_detection: bool = False   # freeze the detector trunk
+    no_caption: bool = False     # detection-only pretraining
+    use_relation: bool = True
+    # detection-only pretraining schedules (reference scripts/train.py:260-263)
+    lr_decay_step: Tuple[int, ...] = (80, 120, 160)
+    lr_decay_rate: float = 0.1
+    bn_decay_step: int = 20
+    bn_decay_rate: float = 0.5
+    ckpt_every: int = 1

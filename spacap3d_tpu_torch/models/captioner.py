@@ -1,11 +1,18 @@
-"""Spatiality-guided transformer captioner, eval path (as the eval half of
-``spacap3d_tpu/models/captioner.py``).
+"""Spatiality-guided transformer captioner (as
+``spacap3d_tpu/models/captioner.py``): the teacher-forced train forward with
+its relation head, and the eval path's greedy decode.
 
 * Pre-LN blocks with the reference LayerNorm (unbiased std, eps on std)
   and a final LayerNorm after each stack; attention masks with -1e9.
 * The object token is the raw proposal feature plus its encoded feature.
 * Early guide: the object token is decoder position 0 and decoder layers
   have no cross-attention; late guide cross-attends to the object token.
+* Train (``train_forward``): teacher forcing in f32 over one caption a
+  scene, the object token of the proposal nearest the annotated object;
+  dropout (from an explicit ``torch.Generator``) on attention
+  probabilities, sublayer outputs, FFN hiddens and embeddings; the
+  relation head reads the last encoder layer's (dropped-out) attention
+  probabilities and value heads.
 * Greedy decode over all B*K proposals with a per-layer KV cache, in
   ``eval_decode_dtype``: the residual stream, caches and weights are
   rounded to that dtype, LayerNorm and softmax run in f32, every matmul
@@ -31,8 +38,10 @@ from spacap3d_tpu_torch.models.core import (
     Dense,
     RefLayerNorm,
     dense,
+    dropout,
     ref_layer_norm,
 )
+from spacap3d_tpu_torch.ops.nn_distance import nn_distance
 
 NEG_INF = -1e9
 
@@ -57,12 +66,14 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dk)
 
 
-def attention(q, k, v, mask):
-    """q, k, v (B, h, T, dk); mask broadcastable bool (.., T, S) or None."""
+def attention(q, k, v, mask, rate: float = 0.0, gen=None):
+    """q, k, v (B, h, T, dk); mask broadcastable bool (.., T, S) or None.
+    Returns the output and the (dropped-out) probabilities."""
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    return torch.matmul(torch.softmax(scores, dim=-1), v)
+    p = dropout(torch.softmax(scores, dim=-1), rate, gen)
+    return torch.matmul(p, v), p
 
 
 class MultiHeadedAttention(nn.Module):
@@ -72,13 +83,17 @@ class MultiHeadedAttention(nn.Module):
         self.linears = nn.ModuleList(
             [Dense(d_model, d_model, init="xavier") for _ in range(4)])
 
-    def forward(self, query, key, value, mask=None):
+    def forward(self, query, key, value, mask=None, rate: float = 0.0, gen=None,
+                return_aux: bool = False):
+        """With ``return_aux`` also the probabilities and value heads."""
         q = split_heads(self.linears[0](query), self.h)
         k = split_heads(self.linears[1](key), self.h)
         v = split_heads(self.linears[2](value), self.h)
         if mask is not None and mask.dim() == 3:
             mask = mask[:, None]                     # broadcast over heads
-        return self.linears[3](merge_heads(attention(q, k, v, mask)))
+        x, p = attention(q, k, v, mask, rate, gen)
+        out = self.linears[3](merge_heads(x))
+        return (out, p, v) if return_aux else out
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -87,19 +102,19 @@ class PositionwiseFeedForward(nn.Module):
         self.w_1 = Dense(d_model, d_ff, init="xavier")
         self.w_2 = Dense(d_ff, d_model, init="xavier")
 
-    def forward(self, x):
-        return self.w_2(torch.relu(self.w_1(x)))
+    def forward(self, x, rate: float = 0.0, gen=None):
+        return self.w_2(dropout(torch.relu(self.w_1(x)), rate, gen))
 
 
 class SublayerConnection(nn.Module):
-    """Pre-LN residual x + fn(norm(x)); dropout is off in eval."""
+    """Pre-LN residual x + dropout(fn(norm(x)))."""
 
     def __init__(self, d_model: int):
         super().__init__()
         self.norm = RefLayerNorm(d_model)
 
-    def forward(self, x, fn):
-        return x + fn(self.norm(x))
+    def forward(self, x, fn, rate: float = 0.0, gen=None):
+        return x + dropout(fn(self.norm(x)), rate, gen)
 
 
 class EncoderLayer(nn.Module):
@@ -109,9 +124,18 @@ class EncoderLayer(nn.Module):
         self.feed_forward = PositionwiseFeedForward(d_model, d_ff)
         self.sublayer = nn.ModuleList([SublayerConnection(d_model) for _ in range(2)])
 
-    def forward(self, x, mask):
-        x = self.sublayer[0](x, lambda xn: self.self_attn(xn, xn, xn, mask))
-        return self.sublayer[1](x, self.feed_forward)
+    def forward(self, x, mask, rate: float = 0.0, gen=None):
+        """-> (x, (attention probabilities, value heads))."""
+        aux = []
+
+        def self_attn(xn):
+            out, p, v = self.self_attn(xn, xn, xn, mask, rate, gen, return_aux=True)
+            aux.append((p, v))
+            return out
+
+        x = self.sublayer[0](x, self_attn, rate, gen)
+        x = self.sublayer[1](x, lambda xn: self.feed_forward(xn, rate, gen), rate, gen)
+        return x, aux[0]
 
 
 class DecoderLayer(nn.Module):
@@ -124,8 +148,18 @@ class DecoderLayer(nn.Module):
         if not early_guide:
             self.src_attn = MultiHeadedAttention(h, d_model)
         self.feed_forward = PositionwiseFeedForward(d_model, d_ff)
+        self.early_guide = early_guide
         idx = ["0", "2"] if early_guide else ["0", "1", "2"]
         self.sublayer = nn.ModuleDict({i: SublayerConnection(d_model) for i in idx})
+
+    def forward(self, x, memory, src_mask, tgt_mask, rate: float = 0.0, gen=None):
+        """Full-sequence (teacher-forced) layer."""
+        x = self.sublayer["0"](
+            x, lambda xn: self.self_attn(xn, xn, xn, tgt_mask, rate, gen), rate, gen)
+        if not self.early_guide:
+            x = self.sublayer["1"](
+                x, lambda xn: self.src_attn(xn, memory, memory, src_mask, rate, gen), rate, gen)
+        return self.sublayer["2"](x, lambda xn: self.feed_forward(xn, rate, gen), rate, gen)
 
 
 class Stack(nn.Module):
@@ -230,21 +264,32 @@ class Captioner(nn.Module):
         self.model = TransformerModel(cfg)
         if cfg.check_relation:
             d = cfg.d_model
-            # relation head: trained in the training slice, unused by eval
+            # relation head: the train forward only
             self.relation_proposal = nn.Sequential(
                 Dense(d, d), nn.ReLU(), Dense(d, d), nn.ReLU(), Dense(d, 9))
 
     # ------------------------------------------------------------ encoder
-    def src_embed(self, src: torch.Tensor, src_pos: Optional[torch.Tensor]) -> torch.Tensor:
-        """Learned position head (conv-BN-ReLU-conv) or sinusoidal PE."""
+    def src_pos(self, ep: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        return {
+            "xyz": lambda: ep["aggregated_vote_xyz"],
+            "center": lambda: ep["center"],
+            "loc": lambda: torch.cat([ep["center"], ep["pred_size"]], dim=-1),
+            None: lambda: None,
+        }[self.cfg.src_pos_type]()
+
+    def src_embed(self, src: torch.Tensor, src_pos: Optional[torch.Tensor],
+                  rate: float = 0.0, gen=None) -> torch.Tensor:
+        """Learned position head (conv-BN-ReLU-conv) or sinusoidal PE (with
+        dropout)."""
         if self.cfg.src_pos_type is not None:
             return src + self.model.src_embed.position_embedding_head(src_pos)
-        return src + sinusoid_pe(src.shape[1], self.cfg.d_model, src.device)
+        return dropout(src + sinusoid_pe(src.shape[1], self.cfg.d_model, src.device), rate, gen)
 
-    def encode(self, x: torch.Tensor, src_mask: torch.Tensor) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, src_mask: torch.Tensor, rate: float = 0.0, gen=None):
+        """-> (memory, the last layer's (attention probabilities, value heads))."""
         for layer in self.model.encoder.layers:
-            x = layer(x, src_mask)
-        return self.model.encoder.norm(x)
+            x, aux = layer(x, src_mask, rate, gen)
+        return self.model.encoder.norm(x), aux
 
     def object_tokens(self, ep: Dict[str, torch.Tensor]) -> torch.Tensor:
         """(B*K, 1, d) object tokens: raw proposal feature (+ encoded memory)."""
@@ -253,15 +298,82 @@ class Captioner(nn.Module):
         b, k, c = feats.shape
         if not cfg.use_transformer_encoder:
             return feats.reshape(b * k, 1, c)
-        src_pos = {
-            "xyz": lambda: ep["aggregated_vote_xyz"],
-            "center": lambda: ep["center"],
-            "loc": lambda: torch.cat([ep["center"], ep["pred_size"]], dim=-1),
-            None: lambda: None,
-        }[cfg.src_pos_type]()
         src_mask = (ep["bbox_mask"] != 0)[:, None, :]
-        memory = self.encode(self.src_embed(feats, src_pos), src_mask)
+        memory, _ = self.encode(self.src_embed(feats, self.src_pos(ep)), src_mask)
         return feats.reshape(b * k, 1, c) + memory.reshape(b * k, 1, c)
+
+    # -------------------------------------------------------------- train
+    def decode_full(self, x, memory, src_mask, tgt_mask, rate: float = 0.0, gen=None):
+        """The decoder over whole sequences (teacher forcing)."""
+        for layer in self.model.decoder.layers:
+            x = layer(x, memory, src_mask, tgt_mask, rate, gen)
+        return self.model.decoder.norm(x)
+
+    def relation_head(self, attn: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+        """attn (B, h, K, K), value (B, h, K, dk) -> (B, K, K, 9). The
+        reference feeds rel[b, i, j] = concat_h(attn[b, h, i, j] value[b, h,
+        j]) to its first linear layer; that layer is folded through the
+        outer product instead, sum_h attn[b, h, i, j] (value[b, h, j] @
+        W0_h), so the (B, K, K, h dk) tensor never exists."""
+        b, h, k, dk = value.shape
+        l0, l2, l4 = (self.relation_proposal[i] for i in (0, 2, 4))
+        vw = torch.einsum("bhjd,hdc->bhjc", value, l0.matrix().t().reshape(h, dk, -1))
+        h1 = torch.relu(torch.einsum("bhij,bhjc->bijc", attn, vw) + l0.bias)
+        return l4(torch.relu(l2(h1)))
+
+    def train_forward(self, ep: Dict[str, torch.Tensor],
+                      gen: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward over the detector endpoints and the batch's
+        ``lang_label`` / ``ref_center_label``: ``lang_cap`` (B, T, vocab)
+        log-probs, ``match_idx``, ``good_bbox_masks``, ``pred_ious`` and,
+        with the relation head, ``relation_pred`` (B, K, K, 9). Dropout at
+        ``transformer_dropout`` in train mode, drawn from ``gen``."""
+        cfg = self.cfg
+        rate = cfg.transformer_dropout if self.training else 0.0
+        src = ep["aggregated_vote_features"]                    # (B, K, C)
+        c = src.shape[-1]
+        # the proposal nearest the annotated object
+        _, _, target_d2, idx = nn_distance(ep["aggregated_vote_xyz"],
+                                           ep["ref_center_label"][:, None, :])
+        index = idx.long()[..., None].expand(-1, -1, c)         # (B, 1, C)
+
+        lang_label = ep["lang_label"]                           # (B, L + 3)
+        seq_full = lang_label[:, :-1] if cfg.early_guide else lang_label[:, 1:-1]
+        t = seq_full.shape[1]
+        causal = torch.ones((t, t), dtype=torch.bool, device=src.device).tril()
+        tgt_mask = (seq_full > 0)[:, None, :] & causal
+        tgt_tokens = seq_full[:, 1:] if cfg.early_guide else seq_full
+        src_mask = (ep["bbox_mask"] != 0)[:, None, :]
+
+        relation = None
+        if cfg.use_transformer_encoder:
+            x = self.src_embed(src, self.src_pos(ep), rate, gen)
+            memory, relation = self.encode(x, src_mask, rate, gen)
+            obj = torch.gather(src, 1, index) + torch.gather(memory, 1, index)
+        else:
+            memory, obj = src, torch.gather(src, 1, index)
+
+        pe = sinusoid_pe(cfg.max_des_len + 4, cfg.d_model, src.device)
+        emb = self.model.tgt_embed[0].lut(tgt_tokens) * math.sqrt(cfg.d_model)
+        emb = dropout(emb + pe[:tgt_tokens.shape[1]], rate, gen)
+        if cfg.early_guide:
+            out = self.decode_full(torch.cat([obj, emb], 1), memory, src_mask, tgt_mask,
+                                   rate, gen)[:, 1:]
+        else:
+            out = self.decode_full(emb, obj, None, tgt_mask, rate, gen)
+
+        # good_bbox_masks: target_d2 is a squared distance, always > -1
+        good = target_d2[:, 0] > -1
+        new = {
+            "lang_cap": torch.log_softmax(self.model.generator.proj(out), dim=-1),
+            "match_idx": idx[:, 0],
+            "good_bbox_masks": good,
+            "pred_ious": torch.where(good.sum() > 0,
+                                     torch.where(good, target_d2[:, 0], 0.0).mean(), 0.0),
+        }
+        if cfg.check_relation and relation is not None:
+            new["relation_pred"] = self.relation_head(*relation)
+        return new
 
     # ------------------------------------------------------------- decode
     def _decode_step(self, w: _DecodeWeights, x, caches, pos: int, cross_kv):

@@ -1,5 +1,5 @@
 """Layers shared by the port's modules: dense (1x1 conv / linear over the
-channel-last axis), eval-mode batch norm and the captioner's layer norm.
+channel-last axis), batch norm, dropout and the captioner's layer norm.
 
 Parameters keep the reference PyTorch modules' shapes and names, so a
 reference state dict loads by name: Linear weights are (out, in), Conv1d
@@ -63,17 +63,70 @@ class Dense(nn.Module):
         return dense(x, self.weight, self.bias)
 
 
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode batch norm over all leading axes, as the JAX package's
+    ``_bn_train``: a two-pass mean and biased variance, ``rsqrt(var +
+    eps)``, and the hand-written backward (one reduction pass over (dy,
+    xhat), one elementwise pass for dx). Returns (y, mean, var); the
+    statistics carry no gradient (they feed only the running stats)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes)
+        var = torch.square(x - mean).mean(axes)
+        rstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.mark_non_differentiable(mean, var)
+        return (x - mean) * rstd * weight + bias, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, rstd = ctx.saved_tensors
+        axes = tuple(range(x.dim() - 1))
+        n = x.numel() // x.shape[-1]
+        xhat = (x - mean) * rstd
+        dbias = dy.sum(axes)
+        dweight = (dy * xhat).sum(axes)
+        dx = (rstd * weight) * (dy - dbias / n - xhat * (dweight / n))
+        return dx, dweight, dbias, None
+
+
 class BatchNorm(nn.BatchNorm1d):
-    """Eval-mode batch norm over the channel-last axis:
-    ``(x - mean) * rsqrt(var + eps) * weight + bias``. The parameters and
-    buffers are ``nn.BatchNorm1d``'s, so reference checkpoints load by name.
-    Train-mode statistics belong to the training slice and are refused."""
+    """Batch norm over the channel-last axis. The parameters and buffers are
+    ``nn.BatchNorm1d``'s, so reference checkpoints load by name.
+
+    Eval: ``(x - running_mean) * rsqrt(running_var + eps) * weight + bias``.
+    Train: the batch statistics (``_BatchNormTrain``), and the running
+    stats move as the JAX package's ``batch_norm`` moves them, with the
+    unbiased variance ``var * n / (n - 1)`` and ``running = (1 - m) *
+    running + m * batch`` at ``m = self.momentum`` (the train forward sets
+    it each step). ``F.batch_norm`` is not used: cuDNN's statistics are not
+    the JAX forward's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("train-mode batch norm is not ported; call .eval()")
+            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+            n = x.numel() // x.shape[-1]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var
+                                       + m * (var * (n / max(n - 1, 1))))
+            return y
         y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
         return y * self.weight + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with masks drawn from ``gen``; the identity when
+    ``rate`` is 0 or there is no generator (as the JAX package's ``dropout``
+    without a key)."""
+    if rate == 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=gen)
+    return torch.where(mask.bool(), x / keep, 0.0)
 
 
 def ref_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -78,8 +78,9 @@ def decode_scores(net, base_xyz, mean_size_arr, num_heading_bin: int,
         size_recover, 2, pred_size_class[..., None, None].expand(-1, -1, 1, 3))[:, :, 0]
     if size_decoded:
         out["pred_size"] = pred_size
-    # ScanNet headings are always 0: axis-aligned corners
-    out["bbox_corner"] = ops.get_3d_box_batch(pred_size, None, center)
+    # ScanNet headings are always 0: axis-aligned corners, detached as the
+    # reference detaches them
+    out["bbox_corner"] = ops.get_3d_box_batch(pred_size.detach(), None, center.detach())
     out["sem_cls_scores"] = sem_cls_scores
     out["bbox_mask"] = torch.argmax(objectness_scores, dim=-1).to(torch.int32)
     out["bbox_sems"] = torch.argmax(sem_cls_scores, dim=-1).to(torch.int32)

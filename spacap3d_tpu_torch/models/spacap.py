@@ -1,4 +1,5 @@
-"""SpaCapNet: backbone -> voting -> proposal -> captioner (eval forward).
+"""SpaCapNet: backbone -> voting -> proposal -> captioner, the eval forward
+(greedy decode) and the train forward (teacher forcing).
 
 The module tree carries the reference state-dict names
 (``backbone_net.*``, ``vgen.*``, ``proposal.*``, ``caption.*``), so the
@@ -17,7 +18,7 @@ from spacap3d_tpu_torch.data.meta import mean_size_arr as default_mean_size_arr
 from spacap3d_tpu_torch.device import resolve_device
 from spacap3d_tpu_torch.models.backbone import Backbone
 from spacap3d_tpu_torch.models.captioner import Captioner
-from spacap3d_tpu_torch.models.core import reset_parameters
+from spacap3d_tpu_torch.models.core import BatchNorm, reset_parameters
 from spacap3d_tpu_torch.models.proposal import Proposal
 from spacap3d_tpu_torch.models.voting import Voting
 
@@ -49,6 +50,24 @@ class SpaCapNet(nn.Module):
         ep["vote_xyz"] = vote_xyz
         ep["vote_features"] = vote_features
         ep.update(self.proposal(vote_xyz, vote_features, self.mean_size_arr))
+        return ep
+
+    def train_forward(self, batch: Dict[str, torch.Tensor],
+                      gen: Optional[torch.Generator] = None,
+                      bn_momentum: float = 0.1) -> Dict[str, torch.Tensor]:
+        """The batch (``point_clouds`` and the label keys) plus the detector
+        and teacher-forced captioner endpoints, as the JAX package's
+        ``apply_spacap(is_eval=False, train=True)``. In train mode (the
+        caller's ``model.train()``) batch norm uses the batch statistics
+        and moves its running stats at ``bn_momentum``, and the captioner
+        drops out with masks drawn from ``gen``."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.momentum = bn_momentum
+        ep = dict(batch)
+        ep.update(self.detect(batch["point_clouds"]))
+        if not self.cfg.no_caption:
+            ep.update(self.caption.train_forward(ep, gen))
         return ep
 
     def forward(self, point_clouds: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -146,6 +146,7 @@ def ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
                              f"got {tuple(t.shape)} {t.dtype}")
     if xyz.shape[0] != new_xyz.shape[0] or xyz.device != new_xyz.device:
         raise ValueError("ball_query: xyz and new_xyz differ in batch or device")
+    xyz, new_xyz = xyz.detach(), new_xyz.detach()   # no gradient: the indices track none
     if xyz.device.type == "cpu":
         return ball_query_plain(xyz, new_xyz, radius, nsample)
     if xyz.device.type != "cuda":

@@ -101,7 +101,8 @@ def fps_default_cluster(device_index: int, b: int, n: int) -> int:
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int, *,
                           cluster: Optional[int] = None) -> torch.Tensor:
-    """(B, N, 3) f32 contiguous -> (B, npoint) int32. On CUDA, ``cluster``
+    """(B, N, 3) f32 contiguous -> (B, npoint) int32, cut from the input's
+    gradient as JAX's ``stop_gradient`` cuts it. On CUDA, ``cluster``
     (1, 2, 4, 8 or 16) forces the blocks a row is split over, which only
     measurements need; by default ``fps_default_cluster`` picks C from B, N
     and the device."""
@@ -109,6 +110,7 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int, *,
         raise ValueError(f"fps: cluster = {cluster!r} must be one of {FPS_CLUSTERS}")
     if xyz.dim() != 3 or xyz.shape[-1] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"fps wants (B, N, 3) float32, got {tuple(xyz.shape)} {xyz.dtype}")
+    xyz = xyz.detach()      # no gradient: the indices track none
     if xyz.device.type == "cpu":
         return furthest_point_sample_plain(xyz, npoint)
     if xyz.device.type != "cuda":

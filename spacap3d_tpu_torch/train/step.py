@@ -1,19 +1,37 @@
-"""The eval step: the eval forward (with greedy decode) plus the detection
-side-outputs the eval harness reads, as ``spacap3d_tpu/train/step.py::
-make_eval_step``."""
+"""The train and eval steps, as ``spacap3d_tpu/train/step.py``.
+
+Train: forward (batch-statistics BN, dropout), losses, backward, two-group
+Adam with torch's coupled weight decay (the JAX chain
+``add_decayed_weights -> scale_by_adam -> lr``) and the BN running-stat
+update. Eval: the eval forward (with greedy decode) plus the detection
+side-outputs the eval harness reads.
+"""
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from spacap3d_tpu_torch.config import ModelConfig
+from spacap3d_tpu_torch.config import ModelConfig, TrainConfig
 from spacap3d_tpu_torch.device import resolve_device
 from spacap3d_tpu_torch.ops.nn_distance import nn_distance
+from spacap3d_tpu_torch.train.losses import NEAR_THRESHOLD, get_scene_cap_loss
 
-# proposals whose centre lies within this distance (m) of a GT centre are
-# positive (spacap3d_tpu/train/losses.py)
-NEAR_THRESHOLD = 0.3
+# metrics a train step returns (the reference Solver's log keys)
+METRIC_KEYS = (
+    "loss", "det_loss", "cap_loss", "relation_loss", "vote_loss",
+    "objectness_loss", "box_loss", "center_loss", "heading_cls_loss",
+    "heading_reg_loss", "size_cls_loss", "size_reg_loss", "sem_cls_loss",
+    "cap_acc", "obj_acc", "pos_ratio", "neg_ratio", "pred_ious",
+    "x_loss", "y_loss", "z_loss", "x_acc", "y_acc", "z_acc",
+)
+# the batch keys the train step reads
+TRAIN_KEYS = (
+    "point_clouds", "vote_label", "vote_label_mask", "center_label",
+    "heading_class_label", "heading_residual_label", "size_class_label",
+    "size_residual_label", "sem_cls_label", "box_label_mask", "box_label_mask_int",
+    "ref_center_label", "lang_ids", "lang_label", "x_label", "y_label", "z_label",
+)
 
 COMPACT_KEYS = (
     "lang_cap", "bbox_lo", "bbox_hi", "bbox_mask",
@@ -90,5 +108,61 @@ def make_eval_step(cfg: ModelConfig, device="cuda", compact: bool = False) -> Ca
         model.eval()
         ep = model(batch["point_clouds"])
         return eval_tail(cfg, ep, batch, compact)
+
+    return step
+
+
+def make_optimizer(model: torch.nn.Module, tc: TrainConfig, steps_per_epoch: int
+                   ) -> Tuple[torch.optim.Adam, Optional[torch.optim.lr_scheduler.MultiStepLR]]:
+    """Adam (betas 0.9 / 0.999, eps 1e-8, coupled weight decay ``tc.wd``) in
+    two groups: ``caption.*`` at ``tc.transformer_lr``, the rest at
+    ``tc.lr``. ``no_detection`` leaves the trunk's parameters out (its BN
+    running stats still move). Detection pretraining (``no_caption``) with
+    ``lr_decay_step`` also returns a MultiStepLR, to be stepped once an
+    update, that decays the rate by ``lr_decay_rate`` from the update of
+    index ``epoch * steps_per_epoch`` on; else the scheduler is None."""
+    groups = {"base": [], "caption": []}
+    for name, p in model.named_parameters():
+        if name.startswith("caption."):
+            groups["caption"].append(p)
+        elif not tc.no_detection:
+            groups["base"].append(p)
+    params = [{"params": groups["base"], "lr": tc.lr},
+              {"params": groups["caption"], "lr": tc.transformer_lr}]
+    opt = torch.optim.Adam([g for g in params if g["params"]], betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=tc.wd)
+    sched = None
+    if tc.no_caption and tc.lr_decay_step:
+        sched = torch.optim.lr_scheduler.MultiStepLR(
+            opt, [int(e) * steps_per_epoch for e in tc.lr_decay_step], gamma=tc.lr_decay_rate)
+    return opt, sched
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Optimizer,
+                    device="cuda", scheduler=None) -> Callable:
+    """Returns step(model, batch, gen=None, bn_momentum=0.1) -> metrics, a
+    dict of 0-dim tensors on ``device`` (``METRIC_KEYS``) taken in the
+    forward, before the update. A step sets ``model.train()``, runs the
+    train forward (dropout masks from ``gen``, BN running stats moved at
+    ``bn_momentum``), the losses and the backward, and steps ``optimizer``
+    (and ``scheduler``). The gradients stay in ``.grad`` until the next
+    step. ``batch`` holds ``TRAIN_KEYS`` as numpy arrays or tensors."""
+    dev = resolve_device(device)
+
+    def step(model, batch, gen: Optional[torch.Generator] = None,
+             bn_momentum: float = 0.1) -> Dict[str, torch.Tensor]:
+        batch = to_device_batch({k: batch[k] for k in TRAIN_KEYS}, dev)
+        model.train()
+        ep = model.train_forward(batch, gen, bn_momentum)
+        ep = get_scene_cap_loss(
+            ep, model.mean_size_arr, cfg.num_heading_bin, cfg.num_size_cluster,
+            detection=not tc.no_detection, caption=not tc.no_caption,
+            use_relation=tc.use_relation and cfg.check_relation)
+        model.zero_grad(set_to_none=True)
+        ep["loss"].backward()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return {k: ep[k].detach() for k in METRIC_KEYS if k in ep}
 
     return step

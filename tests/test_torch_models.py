@@ -78,8 +78,9 @@ def test_core_layers_match_jax(rng):
     want, _ = jcore.batch_norm(p, s, jnp.asarray(x), train=False)
     np.testing.assert_allclose(bn(torch.from_numpy(x)).detach().numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        bn.train()(torch.from_numpy(x))
+    want, _ = jcore.batch_norm(p, s, jnp.asarray(x), train=True)
+    np.testing.assert_allclose(bn.train()(torch.from_numpy(x)).detach().numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-6)
 
     got = ref_layer_norm(torch.from_numpy(x), torch.from_numpy(p["scale"]),
                          torch.from_numpy(p["bias"]))

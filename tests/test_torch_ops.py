@@ -5,6 +5,8 @@ tensors the port's FPS and ball-query wrappers take their plain versions,
 whose arithmetic is the CUDA kernels' (FMA chains, float32(r * r)), so
 index outputs must be exactly equal to the JAX oracles and to the Pallas
 kernels run in interpret mode."""
+import ast
+import os
 import subprocess
 import sys
 
@@ -323,3 +325,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 15, res.stdout
+
+    # chip_smoke.py runs on a machine without JAX: none of its imports,
+    # at any depth of its AST, may name jax, jaxlib or the JAX package
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert "spacap3d_tpu_torch" in {n.split(".")[0] for n in names}, names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "spacap3d_tpu")]
+    assert not bad, bad
