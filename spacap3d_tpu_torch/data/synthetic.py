@@ -14,15 +14,16 @@ from typing import Dict
 import numpy as np
 
 from spacap3d_tpu_torch.config import EOS_ID, GT_VOTE_FACTOR, MAX_NUM_OBJ, SOS_ID
-from spacap3d_tpu_torch.data.meta import mean_size_arr as default_mean_size_arr
+from spacap3d_tpu_torch.data.meta import mean_size_arr
 from spacap3d_tpu_torch.data.spatiality import generate_relation_labels
 
 ROOM = 6.0
+NUM_OBJECTS = 6          # boxes a scene, as the JAX package's synthetic batch
 FIRST_WORD = EOS_ID + 1
 
 
-def _scene(rng: np.random.RandomState, cfg, num_objects: int, msa: np.ndarray) -> Dict:
-    n = cfg.num_points
+def _scene(rng: np.random.RandomState, cfg, msa: np.ndarray) -> Dict:
+    n, num_objects = cfg.num_points, NUM_OBJECTS
     sizes = rng.uniform(0.4, 1.4, (num_objects, 3))
     centers = np.stack([rng.uniform(0.5, ROOM - 0.5, num_objects),
                         rng.uniform(0.5, ROOM - 0.5, num_objects),
@@ -83,11 +84,10 @@ def _scene(rng: np.random.RandomState, cfg, num_objects: int, msa: np.ndarray) -
     return {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in item.items()}
 
 
-def train_batch(cfg, batch_size: int, seed: int = 0, num_objects: int = 6,
-                mean_size_arr: np.ndarray = None) -> Dict[str, np.ndarray]:
+def train_batch(cfg, batch_size: int, seed: int = 0) -> Dict[str, np.ndarray]:
     """A training batch of ``batch_size`` synthetic scenes of
     ``cfg.num_points`` points: numpy arrays keyed as the dataset's."""
     rng = np.random.RandomState(seed)
-    msa = default_mean_size_arr() if mean_size_arr is None else mean_size_arr
-    items = [_scene(rng, cfg, num_objects, msa) for _ in range(batch_size)]
+    msa = mean_size_arr()
+    items = [_scene(rng, cfg, msa) for _ in range(batch_size)]
     return {k: np.stack([it[k] for it in items]) for k in items[0]}

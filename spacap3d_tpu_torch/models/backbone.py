@@ -24,8 +24,8 @@ class _BNWrap(nn.Module):
         super().__init__()
         self.bn = BatchNorm(dim)
 
-    def forward(self, x):
-        return self.bn(x)
+    def forward(self, x, momentum=None):
+        return self.bn(x, momentum)
 
 
 class SharedMLPLayer(nn.Module):
@@ -34,8 +34,8 @@ class SharedMLPLayer(nn.Module):
         self.conv = Dense(in_dim, out_dim, bias=False, kernel_dims=(1, 1), init="kaiming")
         self.bn = _BNWrap(out_dim)
 
-    def forward(self, x):
-        return torch.relu(self.bn(self.conv(x)))
+    def forward(self, x, momentum=None):
+        return torch.relu(self.bn(self.conv(x), momentum))
 
 
 class SharedMLP(nn.Module):
@@ -47,9 +47,9 @@ class SharedMLP(nn.Module):
         for i in range(self.n):
             self.add_module(f"layer{i}", SharedMLPLayer(dims[i], dims[i + 1]))
 
-    def forward(self, x):
+    def forward(self, x, momentum=None):
         for i in range(self.n):
-            x = getattr(self, f"layer{i}")(x)
+            x = getattr(self, f"layer{i}")(x, momentum)
         return x
 
 
@@ -66,9 +66,11 @@ class SAModule(nn.Module):
             dims[0] += 3
         self.mlp_module = SharedMLP(dims)
 
-    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor],
+                momentum: Optional[float] = None):
         """xyz (B, N, 3), features (B, N, C) or None -> (new_xyz (B, np, 3),
-        new_features (B, np, mlp[-1]), inds (B, np) int32)."""
+        new_features (B, np, mlp[-1]), inds (B, np) int32). ``momentum``
+        moves the batch norms' running stats in train mode."""
         b = xyz.shape[0]
         xyz = xyz.contiguous()
         if self.fps_identity:
@@ -88,7 +90,7 @@ class SAModule(nn.Module):
             grouped = ops.group_points(xyz, idx) - new_xyz[:, :, None, :]
             if self.normalize_xyz:
                 grouped = grouped / self.radius
-        new_features = self.mlp_module(grouped).amax(dim=2)
+        new_features = self.mlp_module(grouped, momentum).amax(dim=2)
         return new_xyz, new_features, inds
 
 
@@ -97,18 +99,19 @@ class FPModule(nn.Module):
         super().__init__()
         self.mlp = SharedMLP(dims)
 
-    def forward(self, unknown, known, unknown_feats, known_feats):
+    def forward(self, unknown, known, unknown_feats, known_feats, momentum=None):
         dist2, idx = ops.three_nn(unknown, known)
         dist_recip = 1.0 / (dist2 + 1e-8)
         weight = dist_recip / dist_recip.sum(dim=2, keepdim=True)
         new_features = ops.three_interpolate(known_feats, idx, weight)
         if unknown_feats is not None:
             new_features = torch.cat([new_features, unknown_feats], dim=-1)
-        return self.mlp(new_features)
+        return self.mlp(new_features, momentum)
 
 
 class Backbone(nn.Module):
-    """point_clouds (B, N, 3 + input_feature_dim) -> endpoint dict."""
+    """point_clouds (B, N, 3 + input_feature_dim) -> endpoint dict;
+    ``momentum`` moves the batch norms' running stats in train mode."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -123,18 +126,19 @@ class Backbone(nn.Module):
         self.fp1 = FPModule([cfg.sa_widths[2][-1] + cfg.sa_widths[3][-1], w, w])
         self.fp2 = FPModule([cfg.sa_widths[1][-1] + w, w, w])
 
-    def forward(self, point_clouds: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, point_clouds: torch.Tensor,
+                momentum: Optional[float] = None) -> Dict[str, torch.Tensor]:
         xyz = point_clouds[..., :3]
         features = point_clouds[..., 3:] if point_clouds.shape[-1] > 3 else None
         out: Dict[str, torch.Tensor] = {}
         for name in ("sa1", "sa2", "sa3", "sa4"):
-            xyz, features, inds = getattr(self, name)(xyz, features)
+            xyz, features, inds = getattr(self, name)(xyz, features, momentum)
             out[f"{name}_inds"] = inds
             out[f"{name}_xyz"] = xyz
             out[f"{name}_features"] = features
         feats = self.fp1(out["sa3_xyz"], out["sa4_xyz"],
-                         out["sa3_features"], out["sa4_features"])
-        feats = self.fp2(out["sa2_xyz"], out["sa3_xyz"], out["sa2_features"], feats)
+                         out["sa3_features"], out["sa4_features"], momentum)
+        feats = self.fp2(out["sa2_xyz"], out["sa3_xyz"], out["sa2_features"], feats, momentum)
         out["fp2_features"] = feats
         out["fp2_xyz"] = out["sa2_xyz"]
         out["fp2_inds"] = out["sa1_inds"][:, :out["fp2_xyz"].shape[1]]

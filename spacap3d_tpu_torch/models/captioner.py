@@ -40,6 +40,7 @@ from spacap3d_tpu_torch.models.core import (
     dense,
     dropout,
     ref_layer_norm,
+    run_layers,
 )
 from spacap3d_tpu_torch.ops.nn_distance import nn_distance
 
@@ -278,11 +279,13 @@ class Captioner(nn.Module):
         }[self.cfg.src_pos_type]()
 
     def src_embed(self, src: torch.Tensor, src_pos: Optional[torch.Tensor],
-                  rate: float = 0.0, gen=None) -> torch.Tensor:
-        """Learned position head (conv-BN-ReLU-conv) or sinusoidal PE (with
-        dropout)."""
+                  rate: float = 0.0, gen=None, momentum: Optional[float] = None
+                  ) -> torch.Tensor:
+        """Learned position head (conv-BN-ReLU-conv; ``momentum`` moves its
+        BN's running stats in train mode) or sinusoidal PE (with dropout)."""
         if self.cfg.src_pos_type is not None:
-            return src + self.model.src_embed.position_embedding_head(src_pos)
+            return src + run_layers(self.model.src_embed.position_embedding_head, src_pos,
+                                    momentum)
         return dropout(src + sinusoid_pe(src.shape[1], self.cfg.d_model, src.device), rate, gen)
 
     def encode(self, x: torch.Tensor, src_mask: torch.Tensor, rate: float = 0.0, gen=None):
@@ -322,12 +325,14 @@ class Captioner(nn.Module):
         return l4(torch.relu(l2(h1)))
 
     def train_forward(self, ep: Dict[str, torch.Tensor],
-                      gen: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                      gen: Optional[torch.Generator] = None,
+                      bn_momentum: float = 0.1) -> Dict[str, torch.Tensor]:
         """Teacher-forced forward over the detector endpoints and the batch's
         ``lang_label`` / ``ref_center_label``: ``lang_cap`` (B, T, vocab)
         log-probs, ``match_idx``, ``good_bbox_masks``, ``pred_ious`` and,
         with the relation head, ``relation_pred`` (B, K, K, 9). Dropout at
-        ``transformer_dropout`` in train mode, drawn from ``gen``."""
+        ``transformer_dropout`` in train mode, drawn from ``gen``; the
+        source embedding's BN moves its running stats at ``bn_momentum``."""
         cfg = self.cfg
         rate = cfg.transformer_dropout if self.training else 0.0
         src = ep["aggregated_vote_features"]                    # (B, K, C)
@@ -347,7 +352,7 @@ class Captioner(nn.Module):
 
         relation = None
         if cfg.use_transformer_encoder:
-            x = self.src_embed(src, self.src_pos(ep), rate, gen)
+            x = self.src_embed(src, self.src_pos(ep), rate, gen, bn_momentum)
             memory, relation = self.encode(x, src_mask, rate, gen)
             obj = torch.gather(src, 1, index) + torch.gather(memory, 1, index)
         else:

@@ -100,15 +100,18 @@ class BatchNorm(nn.BatchNorm1d):
     Train: the batch statistics (``_BatchNormTrain``), and the running
     stats move as the JAX package's ``batch_norm`` moves them, with the
     unbiased variance ``var * n / (n - 1)`` and ``running = (1 - m) *
-    running + m * batch`` at ``m = self.momentum`` (the train forward sets
-    it each step). ``F.batch_norm`` is not used: cuDNN's statistics are not
-    the JAX forward's."""
+    running + m * batch`` at the ``momentum`` the caller passes (the train
+    step's, which a solver schedules); train mode without one raises. The
+    module's own ``momentum`` attribute is not read. ``F.batch_norm`` is
+    not used: cuDNN's statistics are not the JAX forward's."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, momentum: Optional[float] = None) -> torch.Tensor:
         if self.training:
+            if momentum is None:
+                raise ValueError("train-mode batch norm needs the momentum of the step")
             y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
             n = x.numel() // x.shape[-1]
-            m = self.momentum
+            m = momentum
             with torch.no_grad():
                 self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
                 self.running_var.copy_((1.0 - m) * self.running_var
@@ -116,6 +119,14 @@ class BatchNorm(nn.BatchNorm1d):
             return y
         y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
         return y * self.weight + self.bias
+
+
+def run_layers(layers: nn.Sequential, x: torch.Tensor,
+               momentum: Optional[float] = None) -> torch.Tensor:
+    """``layers(x)``, with ``momentum`` passed to each batch norm."""
+    for layer in layers:
+        x = layer(x, momentum) if isinstance(layer, BatchNorm) else layer(x)
+    return x
 
 
 def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:

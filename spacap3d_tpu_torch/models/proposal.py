@@ -4,14 +4,14 @@ with the box corners computed on the device (as
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from spacap3d_tpu_torch import ops
 from spacap3d_tpu_torch.models.backbone import SAModule
-from spacap3d_tpu_torch.models.core import BatchNorm, Dense
+from spacap3d_tpu_torch.models.core import BatchNorm, Dense, run_layers
 
 
 def head_out_dim(num_heading_bin: int, num_size_cluster: int, num_class: int) -> int:
@@ -36,14 +36,16 @@ class Proposal(nn.Module):
             Dense(d, out_dim, kernel_dims=(1,)),
         )
 
-    def forward(self, vote_xyz, vote_features, mean_size_arr) -> Dict[str, torch.Tensor]:
-        new_xyz, feats, inds = self.vote_aggregation(vote_xyz, vote_features)
+    def forward(self, vote_xyz, vote_features, mean_size_arr,
+                momentum: Optional[float] = None) -> Dict[str, torch.Tensor]:
+        """``momentum`` moves the batch norms' running stats in train mode."""
+        new_xyz, feats, inds = self.vote_aggregation(vote_xyz, vote_features, momentum)
         out = {
             "aggregated_vote_xyz": new_xyz,
             "aggregated_vote_features": feats,
             "aggregated_vote_inds": inds,
         }
-        net = self.proposal(feats)
+        net = run_layers(self.proposal, feats, momentum)
         out.update(decode_scores(net, new_xyz, mean_size_arr, self.num_heading_bin,
                                  self.num_size_cluster, self.size_decoded))
         out["bbox_feature"] = feats

@@ -18,7 +18,7 @@ from spacap3d_tpu_torch.data.meta import mean_size_arr as default_mean_size_arr
 from spacap3d_tpu_torch.device import resolve_device
 from spacap3d_tpu_torch.models.backbone import Backbone
 from spacap3d_tpu_torch.models.captioner import Captioner
-from spacap3d_tpu_torch.models.core import BatchNorm, reset_parameters
+from spacap3d_tpu_torch.models.core import reset_parameters
 from spacap3d_tpu_torch.models.proposal import Proposal
 from spacap3d_tpu_torch.models.voting import Voting
 
@@ -38,18 +38,21 @@ class SpaCapNet(nn.Module):
         self.register_buffer("mean_size_arr", torch.as_tensor(np.asarray(msa, np.float32)),
                              persistent=False)
 
-    def detect(self, point_clouds: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Detector trunk: point_clouds (B, N, 3 + D) -> endpoint dict."""
-        ep = self.backbone_net(point_clouds)
+    def detect(self, point_clouds: torch.Tensor,
+               bn_momentum: Optional[float] = None) -> Dict[str, torch.Tensor]:
+        """Detector trunk: point_clouds (B, N, 3 + D) -> endpoint dict. In
+        train mode the batch norms move their running stats at
+        ``bn_momentum``."""
+        ep = self.backbone_net(point_clouds, bn_momentum)
         ep["seed_inds"] = ep["fp2_inds"]
         ep["seed_xyz"] = ep["fp2_xyz"]
         ep["seed_features"] = ep["fp2_features"]
-        vote_xyz, vote_features = self.vgen(ep["seed_xyz"], ep["seed_features"])
+        vote_xyz, vote_features = self.vgen(ep["seed_xyz"], ep["seed_features"], bn_momentum)
         vote_features = vote_features / torch.linalg.vector_norm(
             vote_features, dim=-1, keepdim=True)
         ep["vote_xyz"] = vote_xyz
         ep["vote_features"] = vote_features
-        ep.update(self.proposal(vote_xyz, vote_features, self.mean_size_arr))
+        ep.update(self.proposal(vote_xyz, vote_features, self.mean_size_arr, bn_momentum))
         return ep
 
     def train_forward(self, batch: Dict[str, torch.Tensor],
@@ -61,13 +64,10 @@ class SpaCapNet(nn.Module):
         caller's ``model.train()``) batch norm uses the batch statistics
         and moves its running stats at ``bn_momentum``, and the captioner
         drops out with masks drawn from ``gen``."""
-        for m in self.modules():
-            if isinstance(m, BatchNorm):
-                m.momentum = bn_momentum
         ep = dict(batch)
-        ep.update(self.detect(batch["point_clouds"]))
+        ep.update(self.detect(batch["point_clouds"], bn_momentum))
         if not self.cfg.no_caption:
-            ep.update(self.caption.train_forward(ep, gen))
+            ep.update(self.caption.train_forward(ep, gen, bn_momentum))
         return ep
 
     def forward(self, point_clouds: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -140,29 +140,43 @@ def make_optimizer(model: torch.nn.Module, tc: TrainConfig, steps_per_epoch: int
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Optimizer,
                     device="cuda", scheduler=None) -> Callable:
-    """Returns step(model, batch, gen=None, bn_momentum=0.1) -> metrics, a
-    dict of 0-dim tensors on ``device`` (``METRIC_KEYS``) taken in the
-    forward, before the update. A step sets ``model.train()``, runs the
-    train forward (dropout masks from ``gen``, BN running stats moved at
-    ``bn_momentum``), the losses and the backward, and steps ``optimizer``
-    (and ``scheduler``). The gradients stay in ``.grad`` until the next
-    step. ``batch`` holds ``TRAIN_KEYS`` as numpy arrays or tensors."""
+    """Returns step(model, batch, gen=None, bn_momentum=0.1, marks=None) ->
+    metrics, a dict of 0-dim tensors on ``device`` (``METRIC_KEYS``) taken
+    in the forward, before the update. A step sets ``model.train()``, runs
+    the train forward (dropout masks from ``gen``, BN running stats moved
+    at ``bn_momentum``), the losses and the backward, and steps
+    ``optimizer`` (and ``scheduler``). The gradients stay in ``.grad``
+    until the next step. ``batch`` holds ``TRAIN_KEYS`` as numpy arrays or
+    tensors. On a CUDA device a list ``marks`` receives five timing events,
+    recorded before the forward and after the forward, the losses, the
+    backward and the optimizer step: the step's split into those parts."""
     dev = resolve_device(device)
 
+    def mark(marks):
+        if marks is not None:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
     def step(model, batch, gen: Optional[torch.Generator] = None,
-             bn_momentum: float = 0.1) -> Dict[str, torch.Tensor]:
+             bn_momentum: float = 0.1, marks: Optional[list] = None
+             ) -> Dict[str, torch.Tensor]:
         batch = to_device_batch({k: batch[k] for k in TRAIN_KEYS}, dev)
         model.train()
+        mark(marks)
         ep = model.train_forward(batch, gen, bn_momentum)
+        mark(marks)
         ep = get_scene_cap_loss(
             ep, model.mean_size_arr, cfg.num_heading_bin, cfg.num_size_cluster,
             detection=not tc.no_detection, caption=not tc.no_caption,
             use_relation=tc.use_relation and cfg.check_relation)
+        mark(marks)
         model.zero_grad(set_to_none=True)
         ep["loss"].backward()
+        mark(marks)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
+        mark(marks)
         return {k: ep[k].detach() for k in METRIC_KEYS if k in ep}
 
     return step

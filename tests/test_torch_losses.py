@@ -224,14 +224,13 @@ def test_train_batch_norm_matches_jax(rng, shape):
     gp, gx = vjp((jnp.asarray(dy), jax.tree_util.tree_map(jnp.zeros_like, new_s)))
 
     bn = BatchNorm(c).train()
-    bn.momentum = 0.3
     with torch.no_grad():
         bn.weight.copy_(_t(p["scale"]))
         bn.bias.copy_(_t(p["bias"]))
         bn.running_mean.copy_(_t(s["mean"]))
         bn.running_var.copy_(_t(s["var"]))
     xt = _t(x, True)
-    got = bn(xt)
+    got = bn(xt, 0.3)
     got.backward(_t(dy))
     tol = dict(rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)

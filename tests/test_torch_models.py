@@ -79,8 +79,10 @@ def test_core_layers_match_jax(rng):
     np.testing.assert_allclose(bn(torch.from_numpy(x)).detach().numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-6)
     want, _ = jcore.batch_norm(p, s, jnp.asarray(x), train=True)
-    np.testing.assert_allclose(bn.train()(torch.from_numpy(x)).detach().numpy(),
+    np.testing.assert_allclose(bn.train()(torch.from_numpy(x), 0.1).detach().numpy(),
                                np.asarray(want), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):     # train mode takes the step's momentum
+        bn(torch.from_numpy(x))
 
     got = ref_layer_norm(torch.from_numpy(x), torch.from_numpy(p["scale"]),
                          torch.from_numpy(p["bias"]))
