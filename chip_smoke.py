@@ -25,6 +25,7 @@ at a reduced size, for the eval forward and for a train step.
 Exits non-zero if any phase fails or if CUDA is missing. Prints a line per
 phase, a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 """
+import contextlib
 import copy
 import dataclasses
 import json
@@ -45,7 +46,9 @@ from spacap3d_tpu_torch.models.core import BatchNorm
 from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.ops.ball_query import launch_ball_query
 from spacap3d_tpu_torch.tools.fps_probe import fps_capped
+from spacap3d_tpu_torch.train.losses import get_scene_cap_loss
 from spacap3d_tpu_torch.train.step import (
+    TRAIN_KEYS,
     eval_tail,
     make_eval_step,
     make_optimizer,
@@ -83,18 +86,22 @@ TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 # outputs (4.2e-6 and 9.0e-6 on an H100 80GB HBM3, 700 W). Gradients: each
 # leaf's largest difference as a share of its largest entry, floored at
 # 1e-4 of the largest entry of all leaves (leaves that are zero up to
-# rounding: attention key biases, biases ahead of a train-mode BN); the
-# median share within 1e-4. The two sides'
-# forwards differ by rounding, so a neighbour max-pool may pick another of
-# two near-equal neighbours (logged as argmax flips). A flip sends a row's
-# gradient to another neighbour and moves every leaf upstream of its pool,
-# so the step is taken twice: free, each side pooling its own maximum (the
-# largest share within 2e-2), and pinned, both sides' pools taking the
-# CPU's argmax (the largest share within 2e-3, the limit written before
-# the first chip run). A wrong backward moves a leaf by its own size.
+# rounding: attention key biases, biases ahead of a train-mode BN). The
+# two sides' forwards differ by rounding, so a neighbour max-pool may pick
+# another of two near-equal neighbours (logged as argmax flips), which
+# sends a row's gradient to another neighbour and moves every leaf
+# upstream of its pool. So the step is taken twice. Free, each side
+# pooling its own maximum: the median share within 1e-4 and the largest
+# within 2e-2. Pinned, both sides' pools taking the CPU's argmax, against
+# an f64 reference on the CPU with the same pools and indices: a leaf of
+# an f32 gradient sums terms that cancel (BN biases and scales, the vote
+# layers), so even the CPU's f32 leaf lies up to a few 1e-2 of its size
+# from the f64 one. Each of the GPU's leaves must lie within twice the
+# CPU's distance from f64 plus 1e-3 (the leaf tolerance of the port's CPU
+# tests against JAX); a wrong backward moves a leaf by its own size.
 TRAIN_LOSS_TOL, TRAIN_LOSS_ATOL = 5e-4, 1e-5
-TRAIN_GRAD_MEDIAN, TRAIN_GRAD_FLOOR = 1e-4, 1e-4
-TRAIN_GRAD_SHARE = {"free": 2e-2, "pinned": 2e-3}
+TRAIN_GRAD_MEDIAN, TRAIN_GRAD_SHARE, TRAIN_GRAD_FLOOR = 1e-4, 2e-2, 1e-4
+TRAIN_F64_FACTOR, TRAIN_F64_ATOL = 2.0, 1e-3
 # the neighbour max-pools of the train path, by the module whose output
 # they reduce
 POOLS = {**{f"sa{i}": f"backbone_net.sa{i}.mlp_module" for i in range(1, 5)},
@@ -924,9 +931,7 @@ def train_once(model, cfg, tc, batch, pin=None):
     neighbour max-pool takes the neighbour ``pin`` names instead of its own
     maximum."""
     dev = next(model.parameters()).device
-    hooks = [] if pin is None else [model.get_submodule(path).register_forward_hook(
-        lambda m, i, o, k=k: o.gather(2, pin[k].to(o.device)[:, :, None, :]))
-        for k, path in POOLS.items()]
+    hooks = pin_pools(model, pin) if pin is not None else []
     opt, _ = make_optimizer(model, tc, steps_per_epoch=1)
     metrics = make_train_step(cfg, tc, opt, device=dev)(model, batch)
     for h in hooks:
@@ -935,27 +940,81 @@ def train_once(model, cfg, tc, batch, pin=None):
             {n: p.grad.cpu() for n, p in model.named_parameters()})
 
 
-def train_diff(c, g):
-    """CPU (c) against GPU (g) (metrics, gradients) pairs -> each loss's
-    error over its tolerance, and each gradient leaf's share (see
-    TRAIN_GRAD_MEDIAN)."""
-    loss_over = {k: abs(g[0][k] - v) / (TRAIN_LOSS_TOL * abs(v) + TRAIN_LOSS_ATOL)
-                 for k, v in c[0].items() if k.endswith("loss")}
-    top = max(float(v.abs().max()) for v in c[1].values())
-    share = {n: float((g[1][n] - v).abs().max()) / max(float(v.abs().max()),
-                                                        TRAIN_GRAD_FLOOR * top)
-             for n, v in c[1].items()}
-    return loss_over, share
+def pin_pools(model, pin):
+    """Forward hooks that make each POOLS max-pool take the neighbours
+    ``pin`` names; returns the hooks."""
+    return [model.get_submodule(path).register_forward_hook(
+        lambda m, i, o, k=k: o.gather(2, pin[k].to(o.device)[:, :, None, :]))
+        for k, path in POOLS.items()]
+
+
+@contextlib.contextmanager
+def index_tape(tape, replay):
+    """Within: FPS and ball query append their index outputs to ``tape``
+    (``replay`` False), or return ``tape``'s in call order, whatever the
+    input dtype (``replay`` True)."""
+    names = ("furthest_point_sample", "ball_query")
+    saved = {n: getattr(ops, n) for n in names}
+    played = iter(tape)
+
+    def taped(fn):
+        def call(*args, **kw):
+            if replay:
+                return next(played)
+            tape.append(fn(*args, **kw))
+            return tape[-1]
+        return call
+
+    for n in names:
+        setattr(ops, n, taped(saved[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(ops, n, saved[n])
+
+
+def train_f64(model, cfg, tc, batch, pin, tape):
+    """The f64 reference of a pinned step on the CPU -> gradients: the
+    train forward, ``get_scene_cap_loss`` and the backward of
+    ``make_train_step``, taken outside it because the step casts its batch
+    to f32, with the FPS and ball-query indices of the CPU's f32 step
+    replayed from ``tape``."""
+    model = model.double().train()
+    hooks = pin_pools(model, pin)
+    dev_batch = {k: torch.as_tensor(batch[k]) for k in TRAIN_KEYS}
+    dev_batch = {k: v.double() if v.is_floating_point() else v for k, v in dev_batch.items()}
+    with index_tape(tape, replay=True):
+        ep = model.train_forward(dev_batch, None, 0.1)
+    ep = get_scene_cap_loss(
+        ep, model.mean_size_arr, cfg.num_heading_bin, cfg.num_size_cluster,
+        detection=not tc.no_detection, caption=not tc.no_caption,
+        use_relation=tc.use_relation and cfg.check_relation)
+    ep["loss"].backward()
+    for h in hooks:
+        h.remove()
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def leaf_shares(grads, ref):
+    """Each leaf's largest difference from ``ref`` as a share of the ref
+    leaf's largest entry, floored at TRAIN_GRAD_FLOOR of the largest entry
+    of all ref leaves."""
+    top = max(float(v.abs().max()) for v in ref.values())
+    return {n: float((grads[n].double() - v.double()).abs().max())
+            / max(float(v.abs().max()), TRAIN_GRAD_FLOOR * top) for n, v in ref.items()}
 
 
 def phase_cpu_vs_gpu_train():
     """One train step on the CPU and on the card from the same weights and
     batch at the reduced size, dropout 0: equal SA1 and aggregation FPS
-    and ball-query indices; the step taken free and pinned (POOLS take the
-    CPU's argmax), each with the losses within TRAIN_LOSS_TOL and
-    TRAIN_LOSS_ATOL and the gradient leaves' shares within
-    TRAIN_GRAD_MEDIAN (median) and TRAIN_GRAD_SHARE (largest). Logs the
-    neighbour max-pools' argmax flips of the free step."""
+    and ball-query indices; the step taken free (the losses within
+    TRAIN_LOSS_TOL and TRAIN_LOSS_ATOL, the gradient leaves' shares within
+    TRAIN_GRAD_MEDIAN, median, and TRAIN_GRAD_SHARE, largest; the
+    neighbour max-pools' argmax flips logged) and pinned, POOLS taking the
+    CPU's argmax (the losses as before, each GPU leaf within
+    TRAIN_F64_FACTOR times the CPU leaf's share of the f64 reference's
+    plus TRAIN_F64_ATOL)."""
     cfg = dataclasses.replace(ModelConfig(), num_points=8192, num_proposals=64,
                               transformer_dropout=0.0)
     tc = TrainConfig()
@@ -982,15 +1041,19 @@ def phase_cpu_vs_gpu_train():
                    cfg.agg_nsample)}
         out[dev] = {"idx": {k: v.cpu() for k, v in idx.items()}, "pooled": pooled,
                     "free": train_once(copy.deepcopy(init).to(dev), cfg, tc, batch)}
-    for dev in ("cpu", DEV):
-        out[dev]["pinned"] = train_once(copy.deepcopy(init).to(dev), cfg, tc, batch,
-                                        pin=out["cpu"]["pooled"])
+    pin, tape = out["cpu"]["pooled"], []
+    with index_tape(tape, replay=False):
+        out["cpu"]["pinned"] = train_once(copy.deepcopy(init), cfg, tc, batch, pin)
+    out[DEV]["pinned"] = train_once(copy.deepcopy(init).to(DEV), cfg, tc, batch, pin)
+    ref = train_f64(copy.deepcopy(init), cfg, tc, batch, pin, tape)
     c, g = out["cpu"], out[DEV]
     equal = {k: bool(torch.equal(c["idx"][k], g["idx"][k])) for k in c["idx"]}
     flips = {k: int((c["pooled"][k] != g["pooled"][k]).sum()) for k in POOLS}
     res, failed = {}, []
     for run in ("free", "pinned"):
-        loss_over, share = train_diff(c[run], g[run])
+        loss_over = {k: abs(g[run][0][k] - v) / (TRAIN_LOSS_TOL * abs(v) + TRAIN_LOSS_ATOL)
+                     for k, v in c[run][0].items() if k.endswith("loss")}
+        share = leaf_shares(g[run][1], c[run][1])
         worst = sorted(share.items(), key=lambda kv: -kv[1])[:5]
         median = float(np.median(list(share.values())))
         res[run] = {"loss_cpu": c[run][0], "loss_gpu": g[run][0],
@@ -1000,16 +1063,29 @@ def phase_cpu_vs_gpu_train():
         if max(loss_over.values()) > 1.0:
             failed.append(f"{run}: losses beyond {TRAIN_LOSS_TOL} relative + "
                           f"{TRAIN_LOSS_ATOL}: {loss_over}")
-        if median > TRAIN_GRAD_MEDIAN or worst[0][1] > TRAIN_GRAD_SHARE[run]:
-            failed.append(f"{run}: gradients beyond {TRAIN_GRAD_MEDIAN} (median share of a "
-                          f"leaf's largest entry) or {TRAIN_GRAD_SHARE[run]} (largest): "
-                          f"median {median}, worst {worst}")
+    if res["free"]["grad_share_median"] > TRAIN_GRAD_MEDIAN or (
+            res["free"]["grad_share_worst"][0][1] > TRAIN_GRAD_SHARE):
+        failed.append(f"free: gradients beyond {TRAIN_GRAD_MEDIAN} (median share of a leaf's "
+                      f"largest entry) or {TRAIN_GRAD_SHARE} (largest): {res['free']}")
+    e_cpu, e_gpu = leaf_shares(c["pinned"][1], ref), leaf_shares(g["pinned"][1], ref)
+    over = {n: e_gpu[n] / (TRAIN_F64_FACTOR * e_cpu[n] + TRAIN_F64_ATOL) for n in ref}
+    res["pinned"].update({
+        "cpu_f64_share_worst": sorted(e_cpu.items(), key=lambda kv: -kv[1])[:5],
+        "gpu_f64_share_worst": sorted(e_gpu.items(), key=lambda kv: -kv[1])[:5],
+        "cpu_f64_share_median": float(np.median(list(e_cpu.values()))),
+        "gpu_f64_share_median": float(np.median(list(e_gpu.values()))),
+        "gpu_over_limit_worst": [(n, v, e_gpu[n], e_cpu[n]) for n, v in
+                                 sorted(over.items(), key=lambda kv: -kv[1])[:5]]})
+    if max(over.values()) > 1.0:
+        failed.append(f"pinned: GPU leaves beyond {TRAIN_F64_FACTOR} x the CPU's share of the "
+                      f"f64 reference + {TRAIN_F64_ATOL}: {res['pinned']['gpu_over_limit_worst']}")
     log("cpu_vs_gpu_train", batch=2, num_points=cfg.num_points, proposals=cfg.num_proposals,
         indices_equal=equal, maxpool_argmax_flips=flips,
         maxpool_outputs={k: v.numel() for k, v in c["pooled"].items()},
-        grad_leaves=len(c["free"][1]), loss_tol=TRAIN_LOSS_TOL, loss_atol=TRAIN_LOSS_ATOL,
+        grad_leaves=len(ref), loss_tol=TRAIN_LOSS_TOL, loss_atol=TRAIN_LOSS_ATOL,
         grad_median_tol=TRAIN_GRAD_MEDIAN, grad_share_tol=TRAIN_GRAD_SHARE,
-        grad_floor=TRAIN_GRAD_FLOOR, **res)
+        grad_floor=TRAIN_GRAD_FLOOR, f64_factor=TRAIN_F64_FACTOR, f64_atol=TRAIN_F64_ATOL,
+        **res)
     if not all(equal.values()):
         raise AssertionError(f"CPU and GPU train-forward indices differ: {equal}")
     if failed:
