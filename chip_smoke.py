@@ -20,10 +20,15 @@ compares the two forwards' tokens and times them in alternation, drives
 the train step at full width (``make_train_step``: TrainConfig(), B=8,
 40,000 points, dropout from a seeded CUDA generator) for 13 steps on one
 batch, with its launch counts, finite losses and gradients, a falling loss
-and its time, and compares the port on the CPU with the port on the card
-at a reduced size, for the eval forward and for a train step.
-Exits non-zero if any phase fails or if CUDA is missing. Prints a line per
-phase, a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+and its time, compares the port on the CPU with the port on the card at
+a reduced size, for the eval forward and for a train step, and drives the
+eval harness at full width (``mul_eval_grid``, ``eval_cap``) on a
+synthetic 141-scene val split: equal per-seed rows from the grid, its
+per-row upload and the serial protocol, the launches of every grid
+forward, and ``mul_eval_e2e_rows_per_sec`` with its phases (``[mul_eval]``
+lines). Exits non-zero if any phase fails or if CUDA is missing. Prints a
+line per phase, a ``kernels`` JSON line and, last, ``{"ok": true,
+"device": ...}``.
 """
 import contextlib
 import copy
@@ -31,6 +36,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,8 +45,16 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from spacap3d_tpu_torch import ops
-from spacap3d_tpu_torch.config import SOS_ID, ModelConfig, TrainConfig
-from spacap3d_tpu_torch.data.synthetic import train_batch
+from spacap3d_tpu_torch.config import EVAL_MIN_IOU, SOS_ID, DataConfig, ModelConfig, TrainConfig
+from spacap3d_tpu_torch.data.dataset import ScanReferDataset, SceneStore
+from spacap3d_tpu_torch.data.loader import DataLoader
+from spacap3d_tpu_torch.data.scannet_config import ScannetDatasetConfig
+from spacap3d_tpu_torch.data.synthetic import train_batch, write_synthetic_dataset
+from spacap3d_tpu_torch.data.vocabulary import Vocabulary
+from spacap3d_tpu_torch.eval.capeval import Meteor
+from spacap3d_tpu_torch.eval.eval_helper import eval_cap, organize_annotations, prepare_corpus
+from spacap3d_tpu_torch.eval.mul_eval import _build_point_tables as mul_eval_tables
+from spacap3d_tpu_torch.eval.mul_eval import mul_eval_grid
 from spacap3d_tpu_torch.models import init_spacap
 from spacap3d_tpu_torch.models.core import BatchNorm
 from spacap3d_tpu_torch.ops import _build
@@ -106,6 +120,14 @@ TRAIN_F64_FACTOR, TRAIN_F64_ATOL = 2.0, 1e-3
 # they reduce
 POOLS = {**{f"sa{i}": f"backbone_net.sa{i}.mlp_module" for i in range(1, 5)},
          "aggregation": "proposal.vote_aggregation.mlp_module"}
+# the mul_eval phase: ScanRefer's val split is 141 scenes; scenes of ~52,000
+# points (16 boxes of 2,000 over 20,000 floor points), so that the 40,000
+# drawn without replacement include indices past 32,767 in their uint16
+# form; 4 seeds and 3 cold repeats as bench.py:187 times the grid; the
+# row gates on 16 scenes and seeds 0 and 1 at min_iou 0.05
+MUL_EVAL_SCENES, MUL_EVAL_SEEDS, MUL_EVAL_REPEATS = 141, 4, 3
+MUL_EVAL_SCENE = dict(num_objects=16, points_per_object=2000, background_points=20000)
+MUL_EVAL_GATE_SCENES, MUL_EVAL_GATE_SEEDS, MUL_EVAL_GATE_IOU = 16, [0, 1], 0.05
 # the kernels whose device time the forward's profile reports, by kernel name
 PROFILED = {"fps": "fps_kernel", "ball_query": "ball_query_kernel",
             "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel"}
@@ -750,9 +772,46 @@ def phase_eval_forward():
     busy = [summary[n]["device_busy_ms"] for n in ("unfused", "fused")]
     log("fused_vs_unfused", tokens=tokens, **summary,
         fused_minus_unfused_busy_ms=None if None in busy else busy[1] - busy[0])
-    return {"fps": launches["unfused"]["fps"], "ball_query": launches["unfused"]["ball_query"],
-            "generator_argmax": launches["fused"]["generator_argmax"],
-            "ffn": launches["fused"]["ffn"]}
+    return ({"fps": launches["unfused"]["fps"], "ball_query": launches["unfused"]["ball_query"],
+             "generator_argmax": launches["fused"]["generator_argmax"],
+             "ffn": launches["fused"]["ffn"]}, summary["unfused"]["scenes_per_s"])
+
+
+@contextlib.contextmanager
+def fps_sites():
+    """Wraps each ``ops.furthest_point_sample`` call of the model in a
+    profiler range named for its site (a forward or a train step samples at
+    SA1, then at the vote aggregation), so that a profile that lost an FPS
+    span can say which launch it was."""
+    real, calls = ops.furthest_point_sample, [0]
+
+    def annotated(xyz, npoint, **kw):
+        site = ("SA1", "aggregation")[calls[0] % 2]
+        calls[0] += 1
+        with torch.profiler.record_function(f"fps_site {site} {xyz.shape[1]}->{npoint}"):
+            return real(xyz, npoint, **kw)
+
+    ops.furthest_point_sample = annotated
+    try:
+        yield
+    finally:
+        ops.furthest_point_sample = real
+
+
+def fps_launch_report(events):
+    """Each FPS site range of a profile: the CPU-side kernel launch calls
+    the trace holds inside it, and how many of them have their device span
+    (a launch call and its kernel share a correlation id)."""
+    spans = {e.id for e in events if e.device_type == DeviceType.CUDA}
+    calls = [e for e in events if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name]
+    report = []
+    for r in sorted((e for e in events if e.name.startswith("fps_site ")),
+                    key=lambda e: e.time_range.start):
+        inside = [c for c in calls if c.thread == r.thread
+                  and r.time_range.start <= c.time_range.start <= r.time_range.end]
+        report.append({"site": r.name[len("fps_site "):], "cpu_launch_calls": len(inside),
+                       "device_spans": sum(c.id in spans for c in inside)})
+    return report
 
 
 def device_profile(fn, want, tries=3):
@@ -761,22 +820,26 @@ def device_profile(fn, want, tries=3):
     the most device time. Each PROFILED kernel's spans must number the
     launches ``fn`` made (``want``; ``fn`` checks its launch counts); a
     profile that lost a span is taken again, up to ``tries`` times, and if
-    none is complete no busy time is reported."""
+    none is complete no busy time is reported. An incomplete profile logs,
+    for each FPS launch, whether its CPU-side launch call and its device
+    span are in the trace."""
     for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        with fps_sites(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as p:
             t0 = time.perf_counter()
             fn()
             wall_ms = (time.perf_counter() - t0) * 1e3
         # kernels and copies; not the ranges that annotate them (the
         # optimizer's step is one)
-        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in p.events()
+        events = p.events()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                        if e.device_type == DeviceType.CUDA
                        and not getattr(e, "is_user_annotation", False))
         counted = {k: sum(pat in name for _, _, name in spans) for k, pat in PROFILED.items()}
         if counted == want:
             break
         log("profile", incomplete=True, kernel_spans=counted, launches=want,
-            device_spans=len(spans))
+            device_spans=len(spans), fps_launches=fps_launch_report(events))
     else:
         return {"device_busy": f"not measured: {tries} profiles each lost a kernel span",
                 "kernel_spans": counted, "launches": want}
@@ -793,6 +856,196 @@ def device_profile(fn, want, tries=3):
             "device_spans": len(spans), "kernel_spans": counted,
             "incomplete_profiles": attempt, "kernel_device_ms": ours,
             "top_device_ms": [[name[:90], t / 1e3] for name, t in top]}
+
+
+def mul_eval_split(root, num_scenes):
+    """A synthetic val split written under ``root``: ``num_scenes`` scenes
+    of MUL_EVAL_SCENE, one annotation an object, and a vocabulary built
+    from them and padded with filler words to the model's 4528 entries."""
+    anns, scene_ids = write_synthetic_dataset(root, num_scenes=num_scenes, seed=0,
+                                              anns_per_object=1, **MUL_EVAL_SCENE)
+    vocab = Vocabulary.build(anns)
+    for i in range(len(vocab), ModelConfig().vocab_size):
+        vocab.word2idx[f"filler_{i}"] = i
+        vocab.idx2word[str(i)] = f"filler_{i}"
+    store = SceneStore(DataConfig(data_root=root).scannet_data, scene_ids)
+    return anns, store, vocab
+
+
+def mul_eval_dataset(anns, store, vocab, num_scenes):
+    """A fresh dataset (an empty per-scene cache) over the first
+    ``num_scenes`` scenes, one annotation a scene (the eval protocol), and
+    the caption corpus of their objects."""
+    scenes = sorted(store.scenes)[:num_scenes]
+    anns = [a for a in anns if a["scene_id"] in scenes]
+    seen = set()
+    eval_list = [a for a in anns if not (a["scene_id"] in seen or seen.add(a["scene_id"]))]
+    ds = ScanReferDataset(eval_list, store, vocab, ScannetDatasetConfig(),
+                          DataConfig(num_points=ModelConfig().num_points, augment=False,
+                                     use_relation=False), split="val")
+    return ds, anns
+
+
+def counted_step(step, per_forward):
+    """``step`` that appends each call's launches of every kernel to
+    ``per_forward`` (the wrappers count on the calling thread, the grid's
+    main thread)."""
+    def run(model, batch):
+        before = {k: f.launches for k, f in KERNELS.items()}
+        out = step(model, batch)
+        per_forward.append({k: f.launches - before[k] for k, f in KERNELS.items()})
+        return out
+    return run
+
+
+def numeric(metrics, seed):
+    return {"seed": seed, **{k: v for k, v in metrics.items() if k != "detection"}}
+
+
+def phase_mul_eval(forward_scenes_per_s):
+    """The eval harness at full width (default ModelConfig, B = 8, seeded
+    weights with the objectness-1 logit raised by 2, so that random weights
+    detect) on a synthetic split of 141 scenes of ~52,000 points, written
+    to a temporary directory. Gates: on 16 scenes and seeds 0 and 1, the
+    grid (point table on and off) and the serial protocol (``eval_cap``
+    with the full step over ``DataLoader(seed=s)``, in scene order and
+    shuffled) give equal per-seed rows, at min_iou 0.05 so that
+    candidates survive, and the seeds' rows differ; the point table's
+    uint16 indices pass 32,767; every grid forward launches FPS 2, ball
+    query 5 and the decode kernels 0 times; every metric is finite. Then
+    the grid over
+    141 scenes x MUL_EVAL_SEEDS seeds, cold (a fresh dataset each repeat),
+    as bench.py times it: rows over the wall time of the whole call, the
+    median of MUL_EVAL_REPEATS, with each repeat's phases. The first
+    repeat is the counted run (every count set to 0 just before). Returns
+    its launches."""
+    cfg = ModelConfig()
+    model = init_spacap(cfg, seed=0, device=DEV)
+    with torch.no_grad():
+        model.proposal.proposal[6].bias[1] += 2.0
+    grid_step = make_eval_step(cfg, device=DEV, compact=True)
+    per_forward = []
+    want = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
+    meteor = Meteor()
+    meteor.close()
+
+    def forwards_ok(what):
+        bad = [d for d in per_forward if d != want]
+        if bad or not per_forward:
+            raise AssertionError(f"{what}: {len(bad)} of {len(per_forward)} forwards launched "
+                                 f"other than {want}: {bad[:3]}")
+        n = len(per_forward)
+        per_forward.clear()
+        return n
+
+    with tempfile.TemporaryDirectory(prefix="mul_eval_") as root:
+        t0 = time.perf_counter()
+        anns, store, vocab = mul_eval_split(root, MUL_EVAL_SCENES)
+        write_s = time.perf_counter() - t0
+        dc = ScannetDatasetConfig()
+        points = [len(sc.mesh_vertices) for sc in store.scenes.values()]
+
+        # gate 1: grid (table on, off) and serial rows on 16 scenes x 2 seeds
+        ds, gate_anns = mul_eval_dataset(anns, store, vocab, MUL_EVAL_GATE_SCENES)
+        corpus, organized = prepare_corpus(gate_anns), organize_annotations(gate_anns)
+        rows, timings = {}, {}
+        for table in ("auto", "off"):
+            timings[table] = {}
+            rows[table] = mul_eval_grid(
+                counted_step(grid_step, per_forward), model, ds, vocab, dc, corpus, organized,
+                MUL_EVAL_GATE_SEEDS, B, min_iou=MUL_EVAL_GATE_IOU, timing_out=timings[table],
+                point_table=table, device=DEV)
+            forwards_ok(f"gate grid, point_table={table}")
+        if not timings["auto"]["point_table"] or timings["off"]["point_table"]:
+            raise AssertionError(f"point tables: {timings}")
+        # the serial protocol in scene order, and shuffled: its batches then
+        # hold other scenes than the grid's, so equal rows also show that a
+        # row's result does not depend on what shares its batch
+        full_step, serial, matched = make_eval_step(cfg, device=DEV), {}, []
+        for shuffle in (False, True):
+            serial[shuffle] = []
+            for seed in MUL_EVAL_GATE_SEEDS:
+                metrics, candidates = eval_cap(
+                    full_step, model, ds,
+                    DataLoader(ds, B, shuffle=shuffle, seed=seed, num_workers=8),
+                    vocab, dc, gate_anns, min_iou=MUL_EVAL_GATE_IOU, also_detection=True,
+                    device=DEV)
+                serial[shuffle].append(numeric(metrics, seed))
+                matched.append(sum(c != ["sos eos"] for c in candidates.values()))
+        equal = {"off": rows["off"] == rows["auto"], "serial": serial[False] == rows["auto"],
+                 "serial_shuffled": serial[True] == rows["auto"]}
+        choices = ds.getitem_cached(0, np.random.RandomState(0), with_points=False)["pc_choices"]
+        log("mul_eval", gate="rows", scenes=MUL_EVAL_GATE_SCENES, seeds=MUL_EVAL_GATE_SEEDS,
+            min_iou=MUL_EVAL_GATE_IOU, scene_points_min=min(points),
+            scene_points_max=max(points), write_s=write_s, rows=rows["auto"],
+            equal=equal, serial_matched_candidates=matched, corpus_keys=len(corpus),
+            pc_choices_dtype=str(choices.dtype), pc_choices_max=int(choices.max()),
+            pc_choices_share_above_32767=float((choices > 32767).mean()),
+            meteor_is_exact=meteor.is_exact, timing=timings["auto"])
+        if not all(equal.values()):
+            raise AssertionError(f"grid rows differ from {[k for k, v in equal.items() if not v]}:"
+                                 f" grid {rows['auto']}, off {rows['off']}, serial {serial}")
+        if choices.dtype != np.uint16 or choices.max() <= 32767:
+            raise AssertionError(f"pc_choices {choices.dtype}, max {choices.max()}: the gate "
+                                 "does not reach uint16 indices past 32,767")
+        if rows["auto"][0] == rows["auto"][1]:
+            raise AssertionError("the two seeds' rows are equal: the comparison is vacuous")
+
+        # a grid forward alone, in point-table mode: host launch and synced
+        # forward time, against the grid's launch_s a forward
+        ds, full_anns = mul_eval_dataset(anns, store, vocab, MUL_EVAL_SCENES)
+        tables = mul_eval_tables(ds, DEV)
+        batch = to_device_batch({"pc_choices": np.stack([ds.getitem_cached(
+            i, np.random.RandomState(i), with_points=False)["pc_choices"] for i in range(B)]),
+            "scene_row": tables[2][:B]}, torch.device(DEV))
+        batch.update(point_table=tables[0], center_table=tables[1])
+        launch_ms, forward_ms = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grid_step(model, batch)
+            launch_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            forward_ms.append((time.perf_counter() - t0) * 1e3)
+        del batch, tables
+
+        corpus, organized = prepare_corpus(full_anns), organize_annotations(full_anns)
+        seeds = list(range(MUL_EVAL_SEEDS))
+        rps, repeats = [], []
+        for rep in range(MUL_EVAL_REPEATS):
+            ds, _ = mul_eval_dataset(anns, store, vocab, MUL_EVAL_SCENES)
+            if rep == 0:
+                for k in KERNELS.values():
+                    k.launches = 0
+            timing = {}
+            t0 = time.perf_counter()
+            rows = mul_eval_grid(counted_step(grid_step, per_forward), model, ds, vocab, dc,
+                                 corpus, organized, seeds, B, num_workers=8,
+                                 score_workers=min(8, len(seeds)), timing_out=timing,
+                                 device=DEV)
+            total_s = time.perf_counter() - t0
+            if rep == 0:
+                launches = {k: f.launches for k, f in KERNELS.items()}
+            forwards = forwards_ok(f"grid repeat {rep}")
+            bad = [r for r in rows if not all(np.isfinite(v) for v in r.values())]
+            if len(rows) != len(seeds) or bad:
+                raise AssertionError(f"grid rows: {len(rows)}, non-finite {bad}")
+            rps.append(MUL_EVAL_SCENES * len(seeds) / total_s)
+            repeats.append(dict(timing, total_s=total_s, rows_per_s=rps[-1]))
+            log("mul_eval", repeat=rep, scenes=MUL_EVAL_SCENES, seeds=len(seeds), batch=B,
+                forwards=forwards, rows_per_s=rps[-1], total_s=total_s, phases=timing,
+                rows=rows)
+    med = int(np.argsort(rps)[len(rps) // 2])
+    phases = repeats[med]
+    log("mul_eval", mul_eval_e2e_rows_per_sec=float(np.median(rps)), rows_per_sec_all=rps,
+        scenes=MUL_EVAL_SCENES, seeds=MUL_EVAL_SEEDS, repeats=MUL_EVAL_REPEATS, batch=B,
+        num_points=cfg.num_points, vocab_size=cfg.vocab_size,
+        decode_dtype=cfg.eval_decode_dtype, min_iou=EVAL_MIN_IOU, phases=phases,
+        grid_launch_ms_per_forward=phases["launch_s"] / phases["forwards"] * 1e3,
+        alone_launch_ms=launch_ms[1:], alone_forward_ms=forward_ms[1:],
+        eval_forward_scenes_per_s=forward_scenes_per_s,
+        launches=launches, meteor_is_exact=meteor.is_exact)
+    return launches
 
 
 def phase_cpu_vs_gpu():
@@ -1111,10 +1364,11 @@ def main() -> int:
 
     per_shape = phase_kernels()
     per_shape.update(phase_decode_kernels())
-    launches = phase_eval_forward()
+    launches, forward_scenes_per_s = phase_eval_forward()
     train_launches = phase_train_step()
     phase_cpu_vs_gpu()
     phase_cpu_vs_gpu_train()
+    mul_eval_launches = phase_mul_eval(forward_scenes_per_s)
 
     meta = {
         "fps": ("spacap3d_tpu_torch/csrc/fps.cu", "spacap3d_tpu/ops/fps_pallas.py:35"),
@@ -1135,6 +1389,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
             "train_launches": train_launches[name],
+            "mul_eval_launches": mul_eval_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),

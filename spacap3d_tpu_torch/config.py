@@ -1,12 +1,13 @@
-"""Model and train configuration and token ids for the PyTorch port.
+"""Model, train and data configuration and token ids for the PyTorch port.
 
-Copies of the JAX package's ``ModelConfig`` and ``TrainConfig`` (same field
-names, same defaults), so that a config serialised by either package builds
-the same architecture and schedule in the other. The port imports nothing
-of ``spacap3d_tpu``.
+Copies of the JAX package's ``ModelConfig``, ``TrainConfig`` and
+``DataConfig`` (same field names, same defaults), so that a config
+serialised by either package builds the same architecture, schedule and
+input pipeline in the other. The port imports nothing of ``spacap3d_tpu``.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -15,11 +16,14 @@ PAD_ID = 0
 UNK_ID = 1
 SOS_ID = 2
 EOS_ID = 3
+SPECIAL_TOKENS = ("pad_", "unk", "sos", "eos")
 
 MAX_DES_LEN = 30          # max caption tokens (excluding sos/eos)
 MAX_NUM_OBJ = 128         # max GT objects per scene
 GT_VOTE_FACTOR = 3        # replicated GT votes per point
 DEFAULT_SEED = 42
+EVAL_MIN_IOU = 0.5        # caption-to-GT box IoU a proposal needs in eval
+MEAN_COLOR_RGB = (109.8, 97.2, 83.8)
 
 
 @dataclass(frozen=True)
@@ -108,3 +112,31 @@ class TrainConfig:
     bn_decay_step: int = 20
     bn_decay_rate: float = 0.5
     ckpt_every: int = 1
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "ScanRefer"     # or "ReferIt3D"
+    data_root: str = os.environ.get("SPACAP_DATA_ROOT", "data")
+    num_points: int = 40000
+    use_height: bool = True
+    use_color: bool = False
+    use_normal: bool = False
+    use_multiview: bool = False
+    augment: bool = True
+    use_relation: bool = True
+    num_workers: int = 4
+    max_des_len: int = MAX_DES_LEN
+
+    @property
+    def scannet_data(self) -> str:
+        return os.path.join(self.data_root, "scannet", "scannet_data")
+
+    @property
+    def input_feature_dim(self) -> int:
+        return (
+            128 * int(self.use_multiview)
+            + 3 * int(self.use_normal)
+            + 3 * int(self.use_color)
+            + int(self.use_height)
+        )

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from spacap3d_tpu_torch.config import ModelConfig
-from spacap3d_tpu_torch.data.meta import mean_size_arr as default_mean_size_arr
+from spacap3d_tpu_torch.data.scannet_config import mean_size_arr as default_mean_size_arr
 from spacap3d_tpu_torch.device import resolve_device
 from spacap3d_tpu_torch.models.backbone import Backbone
 from spacap3d_tpu_torch.models.captioner import Captioner

@@ -33,6 +33,8 @@ TRAIN_KEYS = (
     "ref_center_label", "lang_ids", "lang_label", "x_label", "y_label", "z_label",
 )
 
+# the batch keys the eval step reads (outside point-table mode)
+EVAL_INPUT_KEYS = ("point_clouds", "center_label")
 COMPACT_KEYS = (
     "lang_cap", "bbox_lo", "bbox_hi", "bbox_mask",
     "objectness_scores", "sem_cls_scores",

@@ -25,7 +25,7 @@ from spacap3d_tpu.models.captioner import _cast_tree, _decode_step, _fuse_qkv, c
 from spacap3d_tpu.models.spacap import make_forward
 from spacap3d_tpu.utils.convert import convert_state_dict
 from spacap3d_tpu_torch.config import ModelConfig
-from spacap3d_tpu_torch.data.meta import mean_size_arr
+from spacap3d_tpu_torch.data.scannet_config import mean_size_arr
 from spacap3d_tpu_torch.models import SpaCapNet, init_spacap
 from spacap3d_tpu_torch.models.captioner import _DecodeWeights
 from spacap3d_tpu_torch.models.core import BatchNorm, dense, ref_layer_norm

@@ -7,6 +7,7 @@ index outputs must be exactly equal to the JAX oracles and to the Pallas
 kernels run in interpret mode."""
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -337,3 +338,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "spacap3d_tpu_torch" in {n.split(".")[0] for n in names}, names
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "spacap3d_tpu")]
     assert not bad, bad
+
+
+def _path_strings(source):
+    """String literals of ``source`` that name a path into the JAX package
+    or its host library (``spacap3d_tpu/...``, ``native/...``, or the bare
+    directory as an ``os.path.join`` part); docstrings aside."""
+    tree = ast.parse(source)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    pattern = re.compile(r"(^|[^\w])(spacap3d_tpu|native)([/\\]|$)")
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs and pattern.search(n.value)]
+
+
+def test_port_reads_no_jax_package_file_by_path():
+    """The port's metadata files and synthetic writer are its own: no
+    string in its code names a file of the JAX package or of ``native/``."""
+    assert _path_strings("p = os.path.join(ROOT, 'spacap3d_tpu', 'data')\n") == ["spacap3d_tpu"]
+    assert _path_strings("lib = f'{root}/native/libspacap_host.so'\n")
+    assert not _path_strings('"""Reads spacap3d_tpu/data/meta."""\nx = "spacap3d_tpu_torch/_build"\n')
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "spacap3d_tpu_torch")
+    found = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    hits = _path_strings(f.read())
+                if hits:
+                    found[os.path.relpath(os.path.join(dirpath, name), root)] = hits
+    assert not found, found

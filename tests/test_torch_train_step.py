@@ -31,7 +31,7 @@ from spacap3d_tpu.train.step import make_optimizer as jax_make_optimizer
 from spacap3d_tpu.train.step import make_train_step as jax_make_train_step
 from spacap3d_tpu.utils.convert import convert_state_dict
 from spacap3d_tpu_torch.config import SOS_ID, ModelConfig, TrainConfig
-from spacap3d_tpu_torch.data.meta import mean_size_arr
+from spacap3d_tpu_torch.data.scannet_config import mean_size_arr
 from spacap3d_tpu_torch.data.spatiality import generate_relation_labels
 from spacap3d_tpu_torch.data.synthetic import train_batch
 from spacap3d_tpu_torch.models import SpaCapNet
