@@ -26,6 +26,12 @@ eval harness at full width (``mul_eval_grid``, ``eval_cap``) on a
 synthetic 141-scene val split: equal per-seed rows from the grid, its
 per-row upload and the serial protocol, the launches of every grid
 forward, and ``mul_eval_e2e_rows_per_sec`` with its phases (``[mul_eval]``
+lines), and drives the command lines at full width (``scripts.train``:
+2 epochs with a validation in each, then a resume to a third;
+``scripts.eval``: one seed, the grid against the serial protocol,
+detection only, the attention and proposal dumps, ``--eval_visualize``;
+then the overfit gate), with the resume position, checkpoints equal to
+their snapshots and the launches of every step and forward (``[cli]``
 lines). Exits non-zero if any phase fails or if CUDA is missing. Prints a
 line per phase, a ``kernels`` JSON line and, last, ``{"ok": true,
 "device": ...}``.
@@ -34,6 +40,8 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -55,12 +63,18 @@ from spacap3d_tpu_torch.eval.capeval import Meteor
 from spacap3d_tpu_torch.eval.eval_helper import eval_cap, organize_annotations, prepare_corpus
 from spacap3d_tpu_torch.eval.mul_eval import _build_point_tables as mul_eval_tables
 from spacap3d_tpu_torch.eval.mul_eval import mul_eval_grid
-from spacap3d_tpu_torch.models import init_spacap
+from spacap3d_tpu_torch.models import SpaCapNet, init_spacap
 from spacap3d_tpu_torch.models.core import BatchNorm
 from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.ops.ball_query import launch_ball_query
+from spacap3d_tpu_torch.scripts import eval as eval_cli
+from spacap3d_tpu_torch.scripts import overfit_gate
+from spacap3d_tpu_torch.scripts import train as train_cli
 from spacap3d_tpu_torch.tools.fps_probe import fps_capped
+from spacap3d_tpu_torch.train import solver as solver_module
+from spacap3d_tpu_torch.train import step as step_module
 from spacap3d_tpu_torch.train.losses import get_scene_cap_loss
+from spacap3d_tpu_torch.train.solver import Solver
 from spacap3d_tpu_torch.train.step import (
     TRAIN_KEYS,
     eval_tail,
@@ -69,6 +83,8 @@ from spacap3d_tpu_torch.train.step import (
     make_train_step,
     to_device_batch,
 )
+from spacap3d_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint_sync
+from spacap3d_tpu_torch.utils.visualize import COLORS
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, dense
 # bf16 on the tensor cores, HBM3
@@ -128,6 +144,14 @@ POOLS = {**{f"sa{i}": f"backbone_net.sa{i}.mlp_module" for i in range(1, 5)},
 MUL_EVAL_SCENES, MUL_EVAL_SEEDS, MUL_EVAL_REPEATS = 141, 4, 3
 MUL_EVAL_SCENE = dict(num_objects=16, points_per_object=2000, background_points=20000)
 MUL_EVAL_GATE_SCENES, MUL_EVAL_GATE_SEEDS, MUL_EVAL_GATE_IOU = 16, [0, 1], 0.05
+# the cli phase: 16 train scenes of MUL_EVAL_SCENE (256 annotations, 32 steps
+# an epoch at B = 8) and 8 val scenes, 2 of them for --eval_visualize; every
+# train step and forward of the CLIs launches FPS 2 and ball query 5 times;
+# the overfit gate at the JAX package's CI settings (tests/test_train_e2e.py:
+# 4 scenes, 250 epochs, CIDEr threshold 0.5 at its default min_iou 0.25)
+CLI_TRAIN_SCENES, CLI_VAL_SCENES, CLI_VIS_SCENES = 16, 8, 2
+CLI_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
+OVERFIT_ARGS = ["--scenes", "4", "--epochs", "250", "--threshold", "0.5"]
 # the kernels whose device time the forward's profile reports, by kernel name
 PROFILED = {"fps": "fps_kernel", "ball_query": "ball_query_kernel",
             "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel"}
@@ -858,16 +882,23 @@ def device_profile(fn, want, tries=3):
             "top_device_ms": [[name[:90], t / 1e3] for name, t in top]}
 
 
+def padded_vocabulary(anns):
+    """The vocabulary of ``anns``, padded with filler words to the default
+    model's 4528 entries, so that the model has the full generator."""
+    vocab = Vocabulary.build(anns)
+    for i in range(len(vocab), ModelConfig().vocab_size):
+        vocab.word2idx[f"filler_{i}"] = i
+        vocab.idx2word[str(i)] = f"filler_{i}"
+    return vocab
+
+
 def mul_eval_split(root, num_scenes):
     """A synthetic val split written under ``root``: ``num_scenes`` scenes
     of MUL_EVAL_SCENE, one annotation an object, and a vocabulary built
     from them and padded with filler words to the model's 4528 entries."""
     anns, scene_ids = write_synthetic_dataset(root, num_scenes=num_scenes, seed=0,
                                               anns_per_object=1, **MUL_EVAL_SCENE)
-    vocab = Vocabulary.build(anns)
-    for i in range(len(vocab), ModelConfig().vocab_size):
-        vocab.word2idx[f"filler_{i}"] = i
-        vocab.idx2word[str(i)] = f"filler_{i}"
+    vocab = padded_vocabulary(anns)
     store = SceneStore(DataConfig(data_root=root).scannet_data, scene_ids)
     return anns, store, vocab
 
@@ -1345,6 +1376,335 @@ def phase_cpu_vs_gpu_train():
         raise AssertionError("CPU and GPU train steps differ: " + "; ".join(failed))
 
 
+def cli_split(root):
+    """The cli phase's synthetic split under ``root``: CLI_TRAIN_SCENES
+    train and CLI_VAL_SCENES val scenes of MUL_EVAL_SCENE (relation labels
+    written), one annotation an object, and the vocabulary cache padded to
+    the model's 4528 words; a second data root of CLI_VIS_SCENES val
+    scenes for ``--eval_visualize`` (the same scene files)."""
+    n = CLI_TRAIN_SCENES + CLI_VAL_SCENES
+    anns, scene_ids = write_synthetic_dataset(root, num_scenes=n, seed=1, anns_per_object=1,
+                                              **MUL_EVAL_SCENE)
+    train_ids, val_ids = set(scene_ids[:CLI_TRAIN_SCENES]), scene_ids[CLI_TRAIN_SCENES:]
+    train_anns = [a for a in anns if a["scene_id"] in train_ids]
+    val_anns = [a for a in anns if a["scene_id"] in set(val_ids)]
+    vocab = padded_vocabulary(train_anns)
+    vis_root = os.path.join(root, "vis_data")
+    os.makedirs(vis_root)
+    os.symlink(os.path.join(root, "scannet"), os.path.join(vis_root, "scannet"))
+    vis_anns = [a for a in val_anns if a["scene_id"] in set(val_ids[:CLI_VIS_SCENES])]
+    for r, split, split_anns in ((root, "train", train_anns), (root, "val", val_anns),
+                                 (vis_root, "val", vis_anns)):
+        with open(os.path.join(r, f"ScanRefer_filtered_{split}.json"), "w") as f:
+            json.dump(split_anns, f)
+    for r in (root, vis_root):
+        vocab.save(os.path.join(r, "ScanRefer_vocabulary.json"))
+    return train_anns, val_anns, vis_root
+
+
+class CliCalls:
+    """Counting shims for the factories the CLIs build their steps with:
+    every call of a built step records its kind, its start time, each
+    kernel's launches and, for a train step, the batch's ``dataset_idx``.
+    Installed on the modules the CLIs read them from while the ``with``
+    lasts."""
+
+    SITES = ((solver_module, "make_train_step", "train_step"),
+             (solver_module, "make_eval_step", "val_forward"),
+             (step_module, "make_eval_step", "eval_forward"),
+             (step_module, "make_attn_dump_step", "attn_dump"))
+
+    def __init__(self):
+        self.calls = []
+
+    def wrap(self, make, kind):
+        def factory(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(*args, **kwargs):
+                before = {k: f.launches for k, f in KERNELS.items()}
+                t0 = time.perf_counter()
+                out = step(*args, **kwargs)
+                self.calls.append({
+                    "kind": kind, "t0": t0,
+                    "launches": {k: f.launches - before[k] for k, f in KERNELS.items()},
+                    "dataset_idx": (args[1]["dataset_idx"].tolist()
+                                    if kind == "train_step" else None)})
+                return out
+            return run
+        return factory
+
+    def __enter__(self):
+        self.real = [(mod, name, getattr(mod, name)) for mod, name, _ in self.SITES]
+        for (mod, name, kind), (_, _, make) in zip(self.SITES, self.real):
+            setattr(mod, name, self.wrap(make, kind))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, make in self.real:
+            setattr(mod, name, make)
+
+    def take(self, kind=None):
+        """The calls so far (of ``kind``), which are then forgotten; raises
+        unless each launched FPS 2, ball query 5 and the decode kernels 0
+        times."""
+        got = [c for c in self.calls if kind is None or c["kind"] == kind]
+        self.calls = [c for c in self.calls if c not in got]
+        bad = [c for c in got if c["launches"] != CLI_WANT]
+        if bad or not got:
+            raise AssertionError(f"{kind or 'cli'}: {len(bad)} of {len(got)} calls launched "
+                                 f"other than {CLI_WANT}: {[c['launches'] for c in bad[:3]]}")
+        return got
+
+
+class SnapshotCheck:
+    """Wraps ``Solver._save``: clones the model's state dict when a save is
+    called; once that file is written (at the next save, or ``finish``), a
+    fresh model loads it and its state dict must equal the clone bit for
+    bit, though the train loop went on updating the parameters in place."""
+
+    def __init__(self):
+        self.pending, self.checked = [], []
+
+    def check(self, solver):
+        solver.ckpt.wait()
+        for path, clone, cfg in self.pending:
+            fresh = SpaCapNet(cfg).to(DEV)
+            fresh.load_state_dict(load_checkpoint(path)["model_state_dict"])
+            bad = [k for k, v in fresh.state_dict().items() if not torch.equal(v, clone[k])]
+            if bad or set(clone) != set(fresh.state_dict()):
+                raise AssertionError(f"{path} differs from its snapshot: {bad[:5]}")
+            self.checked.append(os.path.basename(path))
+        self.pending = []
+
+    def __enter__(self):
+        real = self.real = Solver._save
+
+        def save(solver, name, epoch):
+            self.check(solver)
+            clone = {k: v.detach().clone() for k, v in solver.model.state_dict().items()}
+            real(solver, name, epoch)
+            self.pending.append((os.path.join(solver.root, name), clone, solver.mc))
+
+        Solver._save = save
+        return self
+
+    def __exit__(self, *exc):
+        Solver._save = self.real
+
+
+def save_records(solver, steps):
+    """Each of ``solver``'s saves: snapshot and write ms, and the train
+    steps that started while the file was being written."""
+    return [{"file": os.path.basename(r["path"]), "snapshot_ms": r["snapshot_s"] * 1e3,
+             "write_ms": r["write_s"] * 1e3,
+             "steps_during_write": sum(r["saved_at"] < c["t0"] < r["written_at"]
+                                       for c in steps)} for r in solver.ckpt.records]
+
+
+def train_cli_run(calls, snap, argv, what):
+    t0 = time.perf_counter()
+    solver = train_cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    snap.check(solver)
+    steps, vals = calls.take("train_step"), calls.take("val_forward")
+    with open(os.path.join(solver.root, "all_scalars.json")) as f:
+        scalars = json.load(f)
+    losses = {k: [v for _, _, v in series] for k, series in scalars.items()
+              if k.startswith("train/") and k.endswith("loss")}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"{what}: non-finite losses {losses}")
+    log("cli", run=what, wall_s=wall_s, steps=len(steps), val_forwards=len(vals),
+        validations=len(solver.timing["val"]), start_epoch=solver.start_epoch,
+        global_iter=solver.global_iter,
+        median_step_ms=float(np.median(solver.timing["step"])) * 1e3,
+        step_samples=len(solver.timing["step"]),
+        mean_fetch_ms=float(np.mean(solver.timing["fetch"])) * 1e3,
+        validation_wall_s=solver.timing["val"], saves=save_records(solver, steps),
+        loss_first_last=[losses["train/loss"][0], losses["train/loss"][-1]],
+        best=solver.best)
+    return solver, steps
+
+
+def eval_cli_run(calls, argv, what, kinds=("eval_forward",)):
+    t0 = time.perf_counter()
+    rows = eval_cli.main(["--device", DEV, "--num_workers", "8", "--batch_size", str(B)]
+                         + argv)
+    wall_s = time.perf_counter() - t0
+    counted = {k: len(calls.take(k)) for k in kinds}
+    for row in rows or []:
+        if not all(np.isfinite(v) for v in row.values()):
+            raise AssertionError(f"{what}: non-finite metrics {row}")
+    log("cli", run=what, wall_s=wall_s, calls=counted, rows=rows)
+    return rows
+
+
+def check_visualize(run_root):
+    """Each scene's ply holds the evaluated cloud; its box plys are exactly
+    the entries of predictions.json, each a 12-edge cylinder mesh in the
+    object's palette colour. Returns the scenes' prediction counts."""
+    counts = {}
+    for scene in sorted(os.listdir(os.path.join(run_root, "vis"))):
+        d = os.path.join(run_root, "vis", scene)
+        with open(os.path.join(d, "predictions.json")) as f:
+            preds = json.load(f)
+        with open(os.path.join(d, f"{scene}.ply")) as f:
+            head = f.read(200)
+        want = {f"pred-{oid}-{e['object_name']}.ply" for oid, e in preds.items()}
+        have = {n for n in os.listdir(d) if n.startswith("pred-")}
+        if f"element vertex {ModelConfig().num_points}\n" not in head or have != want:
+            raise AssertionError(f"{scene}: plys {sorted(have)} against {sorted(want)}")
+        for oid, entry in preds.items():
+            with open(os.path.join(d, f"pred-{oid}-{entry['object_name']}.ply")) as f:
+                lines = f.read().splitlines()
+            colour = " ".join(str(int(c)) for c in COLORS[int(oid) % len(COLORS)])
+            verts = lines[lines.index("end_header") + 1:][:12 * 16]
+            if "element vertex 192" not in lines or not all(
+                    v.endswith(colour) and np.isfinite([float(x) for x in v.split()[:3]]).all()
+                    for v in verts):
+                raise AssertionError(f"{scene} pred-{oid}: bad box mesh")
+            if not entry["description"].startswith("sos"):
+                raise AssertionError(f"{scene} pred-{oid}: {entry}")
+        counts[scene] = len(preds)
+    return counts
+
+
+def phase_cli():
+    """The port's command lines on the card at the default ModelConfig's
+    width (40,000 points, 256 proposals, 6+6 layers, d_ff 2048, B = 8, the
+    vocabulary padded to 4528), through their ``main(argv)``, on a
+    synthetic split of CLI_TRAIN_SCENES + CLI_VAL_SCENES scenes of ~52,000
+    points written to a temporary directory. Train: ``--arch_preset full
+    --epoch 2`` with a validation in each epoch, then ``--use_checkpoint
+    --epoch 3``. Gates: the run's files; the resumed run starts at epoch
+    index 2 with the iteration count carried over and the batch order of an
+    uninterrupted run; finite logged losses; every checkpoint, loaded into
+    a fresh model, equal bit for bit to the state dict at its save; FPS 2,
+    ball query 5 and decode kernels 0 in every train step and every
+    forward. Evaluate: one seed with detection, the grid of 2 seeds against
+    ``--serial_mul_eval`` (equal rows), ``--detection_only``, the attention
+    and proposal dumps and ``--eval_visualize`` on CLI_VIS_SCENES scenes
+    (these three and the grid on a copy of the checkpoint with its
+    objectness-1 logit raised by 2, as the mul_eval phase raises it for
+    random weights, so that candidates exist); then the overfit gate at
+    the JAX package's CI settings. Every count is set to 0 just before the
+    train run and read after the last eval run; returns those launches."""
+    with tempfile.TemporaryDirectory(prefix="cli_") as root, CliCalls() as calls, \
+            SnapshotCheck() as snap:
+        t0 = time.perf_counter()
+        train_anns, val_anns, vis_root = cli_split(root)
+        out = os.path.join(root, "outputs")
+        steps_per_epoch = len(train_anns) // B
+        # one validation an epoch (3 epochs of 32 steps: at 30, 60, 90), each
+        # followed by train steps while its model.ckpt is written
+        val_step = steps_per_epoch - 2
+        common = ["--data_root", root, "--output_dir", out, "--arch_preset", "full",
+                  "--batch_size", str(B), "--val_step", str(val_step), "--verbose", "4",
+                  "--num_workers", "8", "--seed", "0", "--device", DEV]
+        log("cli", split_write_s=time.perf_counter() - t0, train_annotations=len(train_anns),
+            val_scenes=CLI_VAL_SCENES, steps_per_epoch=steps_per_epoch, val_step=val_step)
+
+        for k in KERNELS.values():
+            k.launches = 0
+        first, _ = train_cli_run(calls, snap, common + ["--epoch", "2", "--tag", "cli"],
+                                 "train")
+        run = first.stamp
+        files = sorted(os.listdir(first.root))
+        missing = [f for f in ("config.json", "info.json", "log.txt", "all_scalars.json",
+                               "model_last.ckpt", "model.ckpt", "best.txt", "best.json")
+                   if f not in files]
+        if missing or len(first.timing["val"]) != 2:
+            raise AssertionError(f"run files {files}, missing {missing}; "
+                                 f"{len(first.timing['val'])} validations")
+        # the same step on one held batch of the run's loader, with no loader
+        # thread running: the CLI's step time without the loader's Python
+        batch = next(iter(DataLoader(first.train_dataset, B, shuffle=True, seed=0,
+                                     num_workers=8)))
+        held_ms = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first.train_step(first.model, batch, first.dropout_generator(i), 0.1)
+            torch.cuda.synchronize()
+            held_ms.append((time.perf_counter() - t0) * 1e3)
+        calls.take("train_step")
+        log("cli", held_batch_step_ms=float(np.median(held_ms[1:])), held_batch_all=held_ms,
+            cli_median_step_ms=float(np.median(first.timing["step"])) * 1e3)
+        resumed, steps = train_cli_run(calls, snap, common + ["--epoch", "3", "--use_checkpoint",
+                                                              run], "resume")
+        loader = DataLoader(resumed.train_dataset, B, shuffle=True, seed=0, num_workers=8)
+        loader.epoch = 2
+        want_idx = next(iter(loader))["dataset_idx"].tolist()
+        position = {"start_epoch": resumed.start_epoch, "first_global_iter": first.global_iter,
+                    "global_iter": resumed.global_iter, "first_batch": steps[0]["dataset_idx"],
+                    "uninterrupted_first_batch": want_idx}
+        log("cli", resume=position, snapshots_checked=snap.checked)
+        if (resumed.start_epoch != 2 or resumed.global_iter != 3 * steps_per_epoch
+                or len(steps) != steps_per_epoch or steps[0]["dataset_idx"] != want_idx
+                or len(resumed.timing["val"]) != 1):
+            raise AssertionError(f"resume position: {position}")
+        # model_last after each of the 3 epochs; model at each new best
+        if snap.checked.count("model_last.ckpt") != 3 or "model.ckpt" not in snap.checked:
+            raise AssertionError(f"checkpoints checked: {snap.checked}")
+
+        run_root = os.path.join(out, run)
+        ckpt = load_checkpoint(os.path.join(run_root, "model.ckpt"))
+        ckpt["model_state_dict"]["proposal.proposal.6.bias"][1] += 2.0
+        save_checkpoint_sync(os.path.join(run_root, "detects.ckpt"), ckpt)
+        ev = ["--folder", run, "--data_root", root, "--output_dir", out]
+        eval_cli_run(calls, ev + ["--checkpoint", "model.ckpt", "--eval_tag", "one"], "one_seed")
+        with open(os.path.join(run_root, "one_results.csv")) as f:
+            header = f.readline().strip().split(",")
+        if not {"cider", "bleu-4", "rouge", "meteor", "mAP@0.5"} <= set(header):
+            raise AssertionError(f"CSV columns {header}")
+        det = ev + ["--checkpoint", "detects.ckpt", "--min_iou", str(MUL_EVAL_GATE_IOU)]
+        grid = eval_cli_run(calls, det + ["--eval_tag", "grid", "--mul_eval", "--num_seeds",
+                                          "2"], "mul_eval")
+        serial = eval_cli_run(calls, det + ["--eval_tag", "serial", "--mul_eval",
+                                            "--num_seeds", "2", "--serial_mul_eval"],
+                              "serial_mul_eval")
+        if grid != serial or grid[0] == grid[1]:
+            raise AssertionError(f"grid rows {grid} against serial rows {serial}")
+        eval_cli_run(calls, ev + ["--checkpoint", "model.ckpt", "--eval_tag", "det",
+                                  "--detection_only"], "detection_only")
+        eval_cli_run(calls, det + ["--eval_tag", "dumps", "--save_encoder_attn",
+                                   "--save_decoder_attn", "--save_proposal"], "dumps",
+                     kinds=("eval_forward", "attn_dump"))
+        with open(os.path.join(run_root, "dumps_dumps", "attn_weights.pkl"), "rb") as f:
+            attn = pickle.load(f)
+        cfg = ModelConfig()
+        k, t = cfg.num_proposals, cfg.max_des_len + 2
+        shapes = {(e["encoder_attn_weights"].shape, e["decoder_attn_weights"].shape)
+                  for e in attn.values()}
+        want_shapes = {((cfg.num_layers, cfg.num_heads, k, k),
+                        (cfg.num_layers, cfg.num_heads, t, t))}
+        if not attn or shapes != want_shapes or not all(
+                np.isfinite(e["encoder_attn_weights"]).all() for e in attn.values()):
+            raise AssertionError(f"attention dump: {len(attn)} entries, shapes {shapes}")
+        log("cli", attention_entries=len(attn), attention_shapes=[list(s) for s in shapes.pop()],
+            dump_mb={n: os.path.getsize(os.path.join(run_root, "dumps_dumps", n)) / 2 ** 20
+                     for n in os.listdir(os.path.join(run_root, "dumps_dumps"))})
+        eval_cli_run(calls, ["--folder", run, "--data_root", vis_root, "--output_dir", out,
+                             "--checkpoint", "detects.ckpt", "--min_iou",
+                             str(MUL_EVAL_GATE_IOU), "--eval_visualize", "--nodryrun"],
+                     "eval_visualize")
+        vis = check_visualize(run_root)
+        if len(vis) != CLI_VIS_SCENES or not sum(vis.values()):
+            raise AssertionError(f"visualized scenes {vis}")
+        launches = {k: f.launches for k, f in KERNELS.items()}
+        log("cli", visualized_predictions=vis, launches=launches)
+
+        t0 = time.perf_counter()
+        result = overfit_gate.main(["--workdir", os.path.join(root, "overfit"), "--device",
+                                    DEV] + OVERFIT_ARGS)
+        gate_s = time.perf_counter() - t0
+        calls.take()
+        log("overfit_gate", wall_s=gate_s, args=OVERFIT_ARGS, **result)
+        if not result["passed"]:
+            raise AssertionError(f"overfit gate failed: {result}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1369,6 +1729,7 @@ def main() -> int:
     phase_cpu_vs_gpu()
     phase_cpu_vs_gpu_train()
     mul_eval_launches = phase_mul_eval(forward_scenes_per_s)
+    cli_launches = phase_cli()
 
     meta = {
         "fps": ("spacap3d_tpu_torch/csrc/fps.cu", "spacap3d_tpu/ops/fps_pallas.py:35"),
@@ -1390,6 +1751,7 @@ def main() -> int:
             "replaces": meta[name][1], "launches": launches[name],
             "train_launches": train_launches[name],
             "mul_eval_launches": mul_eval_launches[name],
+            "cli_launches": cli_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),

@@ -1,14 +1,18 @@
-"""Model, train and data configuration and token ids for the PyTorch port.
+"""Model, train, data and run configuration and token ids for the PyTorch
+port.
 
-Copies of the JAX package's ``ModelConfig``, ``TrainConfig`` and
-``DataConfig`` (same field names, same defaults), so that a config
-serialised by either package builds the same architecture, schedule and
-input pipeline in the other. The port imports nothing of ``spacap3d_tpu``.
+Copies of the JAX package's ``ModelConfig``, ``TrainConfig``,
+``DataConfig`` and ``RunConfig`` (same field names, same defaults), so that
+a ``config.json`` written by either package builds the same architecture,
+schedule and input pipeline in the other. The port imports nothing of
+``spacap3d_tpu``.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 # Special vocabulary tokens (reference lib/dataset.py:134-144).
@@ -140,3 +144,35 @@ class DataConfig:
             + 3 * int(self.use_color)
             + int(self.use_height)
         )
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    output_dir: str = "outputs"
+    tag: str = ""
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)
+
+    @staticmethod
+    def load(path: str) -> "RunConfig":
+        """JSON lists become tuples where the dataclass holds tuples."""
+        with open(path) as f:
+            raw = json.load(f)
+
+        def build(cls, values):
+            return cls(**{k: _tuples(v) for k, v in values.items()})
+
+        return RunConfig(model=build(ModelConfig, raw["model"]),
+                         train=build(TrainConfig, raw["train"]),
+                         data=build(DataConfig, raw["data"]),
+                         output_dir=raw.get("output_dir", "outputs"),
+                         tag=raw.get("tag", ""))
+
+
+def _tuples(v):
+    return tuple(_tuples(x) for x in v) if isinstance(v, list) else v

@@ -17,6 +17,7 @@ filter (flagged in the saved json).
 from __future__ import annotations
 
 import json
+import os
 from collections import Counter
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -97,3 +98,16 @@ class Vocabulary:
         return Vocabulary(raw["word2idx"], raw["idx2word"],
                           raw.get("glove_filtered", True))
 
+
+
+def load_or_build_vocabulary(
+    cache_path: str, annotations, glove_vocab=None, max_len: int = MAX_DES_LEN
+) -> Vocabulary:
+    """The vocabulary cached at ``cache_path``, else one built from
+    ``annotations`` and written there."""
+    if os.path.exists(cache_path):
+        return Vocabulary.load(cache_path)
+    vocab = Vocabulary.build(annotations, glove_vocab, max_len)
+    os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
+    vocab.save(cache_path)
+    return vocab

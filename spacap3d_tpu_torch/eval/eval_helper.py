@@ -1,6 +1,7 @@
 """Caption and detection evaluation harness, as
 ``spacap3d_tpu/eval/eval_helper.py`` (reference lib/eval_helper.py:24-319:
-prepare_corpus, feed_scene_cap, eval_cap).
+prepare_corpus, feed_scene_cap, eval_cap), with the attention and proposal
+dumps and ``eval_visualize``.
 
 The eval step (``train/step.py::make_eval_step``: the detector, the greedy
 decode over every proposal and the objectness assignment, one forward on
@@ -60,6 +61,13 @@ def fetch_outputs(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The step's outputs as host numpy arrays (one copy a tensor; each
     waits for the forward that produced it)."""
     return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def run_step(step, model, batch: Dict, dev: torch.device):
+    """``step`` on ``batch``'s input keys, uploaded to ``dev``; returns the
+    uploaded batch and the outputs on the host."""
+    dev_batch = to_device_batch({k: batch[k] for k in EVAL_INPUT_KEYS}, dev)
+    return dev_batch, fetch_outputs(step(model, dev_batch))
 
 
 def prepare_corpus(raw_data: List[dict], max_len: int = MAX_DES_LEN) -> Dict[str, List[str]]:
@@ -160,28 +168,36 @@ def feed_scene_cap(
     dc: ScannetDatasetConfig,
     min_iou: float = EVAL_MIN_IOU,
     also_detection: bool = False,
+    attn_dump_step=None,
     save_proposal: bool = False,
     device="cuda",
-) -> Tuple[Dict, Optional[APCalculator], Dict]:
+) -> Tuple[Dict, Optional[APCalculator], Dict, Dict]:
     """Runs ``step(model, batch)`` (``make_eval_step``, full outputs) over
     the loader; returns (candidates, an APCalculator when
-    ``also_detection``, proposal dumps). The dumps mirror the reference's
-    --save_proposal output (lib/eval_helper.py:224-243)."""
+    ``also_detection``, attention intermediates, proposal dumps). The last
+    two mirror the reference's --save_*_attn / --save_proposal outputs
+    (lib/eval_helper.py:99-121, :224-243): ``attn_dump_step``
+    (``make_attn_dump_step``) runs on each batch's greedy tokens, and each
+    matched caption keeps its scene's encoder weights and its proposal's
+    decoder weights."""
     dev = eval_device(model, device)
     candidates: Dict[str, List[str]] = {}
+    intermediates: Dict = {}
     proposal_dump: Dict = {}
     post = dict(POST_DICT_DEFAULTS, dataset_config=dc)
     ap_calc = APCalculator(0.5, dc.class2type) if also_detection else None
 
     for batch in loader:
-        out = fetch_outputs(step(model, to_device_batch(
-            {k: batch[k] for k in EVAL_INPUT_KEYS}, dev)))
+        dev_batch, out = run_step(step, model, batch, dev)
         captions = out["lang_cap"]                       # (B, K, T) int
-        bsize = captions.shape[0]
+        bsize, num_proposals = captions.shape[:2]
         valid = _valid_rows(batch, bsize)
 
         nms_mask, detected_object_ids, ious, preds, gts = postprocess_batch(
             out, batch, post, min_iou, with_detection=ap_calc is not None)
+        if attn_dump_step is not None:
+            enc_attn, dec_attn = (a.cpu().numpy() for a in
+                                  attn_dump_step(model, dev_batch, captions))
         keep = (nms_mask == 1) & (ious > min_iou)        # (B, K)
         for b in range(bsize):
             if not valid[b]:
@@ -190,7 +206,15 @@ def feed_scene_cap(
             final_k = resolve_winning_proposals(keep[b], detected_object_ids[b], organized,
                                                 scene_id)
             for key, k in final_k.items():
-                candidates[key] = [vocab.decode(captions[b, k])]
+                caption = vocab.decode(captions[b, k])
+                candidates[key] = [caption]
+                if attn_dump_step is not None:
+                    entry = {"token": caption.split(" "), "prop_id": k}
+                    if enc_attn.size:
+                        entry["encoder_attn_weights"] = enc_attn[:, b]
+                    if dec_attn.size:
+                        entry["decoder_attn_weights"] = dec_attn[:, b * num_proposals + k]
+                    intermediates[key] = entry
             if final_k and save_proposal:
                 proposal_dump[scene_id] = {
                     "obj_id": detected_object_ids[b],
@@ -207,7 +231,86 @@ def feed_scene_cap(
             ap_calc.step([p for p, v in zip(preds, valid) if v],
                          [g for g, v in zip(gts, valid) if v])
 
-    return candidates, ap_calc, proposal_dump
+    return candidates, ap_calc, intermediates, proposal_dump
+
+
+def eval_visualize(
+    step, model, dataset, loader,
+    vocab: Vocabulary, organized: Dict, dc: ScannetDatasetConfig,
+    out_root: str,
+    scans_dir: Optional[str] = None,
+    min_iou: float = EVAL_MIN_IOU,
+    verbose: bool = False,
+    nodryrun: bool = False,
+    device="cuda",
+) -> Dict[str, Dict]:
+    """``--eval_visualize`` (reference scripts/eval.py:247-378): for every
+    scene, dump ``vis/{scene}/``:
+
+      * ``{scene}.ply``: the axis-aligned scene mesh when present under
+        ``scans_dir`` (the reference copies ``{scene}_axis_aligned.ply``),
+        else the evaluated point cloud as a point ply;
+      * ``pred-{object_id}-{object_name}.ply``: a cylinder-edge box mesh
+        per proposal that survives NMS, objectness and IoU > ``min_iou``,
+        coloured ``COLORS[object_id % len(COLORS)]`` (:366-369);
+      * ``predictions.json``: {object_id: {object_name, description}}.
+
+    ``nodryrun=False`` (the reference default) only prints the paths.
+    Returns {scene_id: candidates}."""
+    import shutil
+
+    from spacap3d_tpu_torch.utils.visualize import COLORS, write_bbox, write_ply
+
+    dev = eval_device(model, device)
+    post = dict(POST_DICT_DEFAULTS, dataset_config=dc)
+    all_candidates: Dict[str, Dict] = {}
+    for batch in loader:
+        _, out = run_step(step, model, batch, dev)
+        captions = out["lang_cap"]
+        bsize = captions.shape[0]
+        valid = _valid_rows(batch, bsize)
+        nms_mask, det_ids, ious, _, _ = postprocess_batch(out, batch, post, min_iou,
+                                                          with_detection=False)
+        keep = (nms_mask == 1) & (ious > min_iou)
+        for b in range(bsize):
+            if not valid[b]:
+                continue
+            scene_id = dataset.annotations[int(batch["dataset_idx"][b])]["scene_id"]
+            scene_root = os.path.join(out_root, "vis", scene_id)
+            if verbose:
+                print(">> scene root:", scene_root)
+            if nodryrun:
+                os.makedirs(scene_root, exist_ok=True)
+                mesh_path = os.path.join(scene_root, f"{scene_id}.ply")
+                mesh_src = (os.path.join(scans_dir, scene_id, f"{scene_id}_axis_aligned.ply")
+                            if scans_dir else None)
+                if mesh_src and os.path.exists(mesh_src):
+                    shutil.copyfile(mesh_src, mesh_path)
+                else:
+                    write_ply(batch["point_clouds"][b, :, :3], mesh_path)
+            # the last surviving proposal of an object wins, as the
+            # reference's loop, which rewrites the object's entry and ply
+            candidates: Dict[str, Dict] = {}
+            for key, k in resolve_winning_proposals(keep[b], det_ids[b], organized,
+                                                    scene_id).items():
+                _, object_id, object_name = key.split("|")
+                candidates[object_id] = {"object_name": object_name,
+                                         "description": vocab.decode(captions[b, k])}
+                ply_path = os.path.join(scene_root, f"pred-{object_id}-{object_name}.ply")
+                if verbose:
+                    print(ply_path)
+                if nodryrun:
+                    color = COLORS[int(object_id) % len(COLORS)]
+                    write_bbox(out["bbox_corner"][b, k], ply_path,
+                               color=tuple(int(x) for x in color))
+            pred_path = os.path.join(scene_root, "predictions.json")
+            if verbose:
+                print("pred_path:", pred_path)
+            if nodryrun:
+                with open(pred_path, "w") as f:
+                    json.dump(candidates, f, indent=4)
+            all_candidates[scene_id] = candidates
+    return all_candidates
 
 
 def eval_detection(step, model, loader, dc: ScannetDatasetConfig, ap_iou: float = 0.5,
@@ -219,8 +322,7 @@ def eval_detection(step, model, loader, dc: ScannetDatasetConfig, ap_iou: float 
     post = dict(POST_DICT_DEFAULTS, dataset_config=dc)
     calc = APCalculator(ap_iou, dc.class2type)
     for batch in loader:
-        out = fetch_outputs(step(model, to_device_batch(
-            {k: batch[k] for k in EVAL_INPUT_KEYS}, dev)))
+        _, out = run_step(step, model, batch, dev)
         out["point_clouds"] = batch["point_clouds"]
         preds = parse_predictions_arrays(out, post)
         gts = parse_groundtruths_arrays(
@@ -277,12 +379,15 @@ def eval_cap(
     corpus_cache: Optional[str] = None,
     pred_path: Optional[str] = None,
     meteor_jar: Optional[str] = None,
+    attn_dump_step=None,
     save_proposal: bool = False,
     dump_dir: Optional[str] = None,
     device="cuda",
 ):
     """Full caption (+ optional detection) evaluation pass; returns
-    (metrics, candidates)."""
+    (metrics, candidates). With ``dump_dir``, the attention intermediates
+    (``attn_dump_step``) go to ``attn_weights.pkl`` and the proposal dumps
+    (``save_proposal``) to ``proposal_related.pkl`` there."""
     if corpus_cache and os.path.exists(corpus_cache):
         with open(corpus_cache) as f:
             corpus = json.load(f)
@@ -294,16 +399,19 @@ def eval_cap(
                 json.dump(corpus, f, indent=4)
 
     organized = organize_annotations(corpus_annotations)
-    candidates, ap_calc, proposal_dump = feed_scene_cap(
+    candidates, ap_calc, intermediates, proposal_dump = feed_scene_cap(
         step, model, dataset, loader, vocab, organized, dc,
-        min_iou=min_iou, also_detection=also_detection,
+        min_iou=min_iou, also_detection=also_detection, attn_dump_step=attn_dump_step,
         save_proposal=save_proposal, device=device,
     )
-    if dump_dir and proposal_dump:
+    if dump_dir and (intermediates or proposal_dump):
         import pickle
         os.makedirs(dump_dir, exist_ok=True)
-        with open(os.path.join(dump_dir, "proposal_related.pkl"), "wb") as f:
-            pickle.dump(proposal_dump, f)
+        for name, dump in (("attn_weights.pkl", intermediates),
+                           ("proposal_related.pkl", proposal_dump)):
+            if dump:
+                with open(os.path.join(dump_dir, name), "wb") as f:
+                    pickle.dump(dump, f)
     bleu, cider, rouge, meteor, candidates = score_captions(corpus, candidates, meteor_jar)
     if pred_path:
         os.makedirs(os.path.dirname(pred_path) or ".", exist_ok=True)

@@ -13,6 +13,9 @@ its relation head, and the eval path's greedy decode.
   probabilities, sublayer outputs, FFN hiddens and embeddings; the
   relation head reads the last encoder layer's (dropped-out) attention
   probabilities and value heads.
+* The attention dump (``attention_dump``): the same teacher-forced
+  encoder and decoder without dropout over generated tokens, returning
+  every layer's attention probabilities.
 * Greedy decode over all B*K proposals with a per-layer KV cache, in
   ``eval_decode_dtype``: the residual stream, caches and weights are
   rounded to that dtype, LayerNorm and softmax run in f32, every matmul
@@ -153,10 +156,17 @@ class DecoderLayer(nn.Module):
         idx = ["0", "2"] if early_guide else ["0", "1", "2"]
         self.sublayer = nn.ModuleDict({i: SublayerConnection(d_model) for i in idx})
 
-    def forward(self, x, memory, src_mask, tgt_mask, rate: float = 0.0, gen=None):
-        """Full-sequence (teacher-forced) layer."""
-        x = self.sublayer["0"](
-            x, lambda xn: self.self_attn(xn, xn, xn, tgt_mask, rate, gen), rate, gen)
+    def forward(self, x, memory, src_mask, tgt_mask, rate: float = 0.0, gen=None,
+                attn_out: Optional[list] = None):
+        """Full-sequence (teacher-forced) layer; ``attn_out`` receives the
+        self-attention probabilities."""
+        def self_attn(xn):
+            out, p, _ = self.self_attn(xn, xn, xn, tgt_mask, rate, gen, return_aux=True)
+            if attn_out is not None:
+                attn_out.append(p)
+            return out
+
+        x = self.sublayer["0"](x, self_attn, rate, gen)
         if not self.early_guide:
             x = self.sublayer["1"](
                 x, lambda xn: self.src_attn(xn, memory, memory, src_mask, rate, gen), rate, gen)
@@ -288,10 +298,14 @@ class Captioner(nn.Module):
                                     momentum)
         return dropout(src + sinusoid_pe(src.shape[1], self.cfg.d_model, src.device), rate, gen)
 
-    def encode(self, x: torch.Tensor, src_mask: torch.Tensor, rate: float = 0.0, gen=None):
-        """-> (memory, the last layer's (attention probabilities, value heads))."""
+    def encode(self, x: torch.Tensor, src_mask: torch.Tensor, rate: float = 0.0, gen=None,
+               attn_out: Optional[list] = None):
+        """-> (memory, the last layer's (attention probabilities, value
+        heads)); ``attn_out`` receives every layer's probabilities."""
         for layer in self.model.encoder.layers:
             x, aux = layer(x, src_mask, rate, gen)
+            if attn_out is not None:
+                attn_out.append(aux[0])
         return self.model.encoder.norm(x), aux
 
     def object_tokens(self, ep: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -306,11 +320,51 @@ class Captioner(nn.Module):
         return feats.reshape(b * k, 1, c) + memory.reshape(b * k, 1, c)
 
     # -------------------------------------------------------------- train
-    def decode_full(self, x, memory, src_mask, tgt_mask, rate: float = 0.0, gen=None):
-        """The decoder over whole sequences (teacher forcing)."""
+    def decode_full(self, x, memory, src_mask, tgt_mask, rate: float = 0.0, gen=None,
+                    attn_out: Optional[list] = None):
+        """The decoder over whole sequences (teacher forcing); ``attn_out``
+        receives every layer's self-attention probabilities."""
         for layer in self.model.decoder.layers:
-            x = layer(x, memory, src_mask, tgt_mask, rate, gen)
+            x = layer(x, memory, src_mask, tgt_mask, rate, gen, attn_out)
         return self.model.decoder.norm(x)
+
+    @torch.no_grad()
+    def attention_dump(self, ep: Dict[str, torch.Tensor], tokens: torch.Tensor):
+        """Attention weights for analysis, as the JAX package's
+        ``captioner_attention_dump`` (the reference's --save_encoder_attn /
+        --save_decoder_attn, lib/eval_helper.py:99-121). ``tokens`` (B, K,
+        T) are generated ids; returns (enc_attn (L, B, h, K, K), dec_attn
+        (L, B*K, h, T', T')), T' counting the object token under early
+        guide (an empty tensor for an absent encoder). The decoder's weights
+        come from a teacher-forced rerun over the tokens, without dropout,
+        which equals the last step of the reference's recompute-everything
+        loop."""
+        cfg = self.cfg
+        feats = ep["aggregated_vote_features"]
+        b, k, c = feats.shape
+        r = b * k
+        src_mask = (ep["bbox_mask"] != 0)[:, None, :]
+        enc_attn, dec_attn = [], []
+        if cfg.use_transformer_encoder:
+            memory, _ = self.encode(self.src_embed(feats, self.src_pos(ep)), src_mask,
+                                    attn_out=enc_attn)
+            obj = feats.reshape(r, 1, c) + memory.reshape(r, 1, c)
+        else:
+            memory, obj = feats, feats.reshape(r, 1, c)
+        t = tokens.shape[-1]
+        pe = sinusoid_pe(cfg.max_des_len + 4, cfg.d_model, feats.device)
+        emb = (self.model.tgt_embed[0].lut(tokens.reshape(r, t).long()) * math.sqrt(cfg.d_model)
+               + pe[:t])
+        if cfg.early_guide:
+            causal = torch.ones((1, t + 1, t + 1), dtype=torch.bool, device=feats.device).tril()
+            self.decode_full(torch.cat([obj, emb], 1), memory, src_mask, causal,
+                             attn_out=dec_attn)
+        else:
+            causal = torch.ones((1, t, t), dtype=torch.bool, device=feats.device).tril()
+            self.decode_full(emb, obj, None, causal, attn_out=dec_attn)
+        empty = feats.new_zeros((0,))
+        return (torch.stack(enc_attn) if enc_attn else empty,
+                torch.stack(dec_attn) if dec_attn else empty)
 
     def relation_head(self, attn: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
         """attn (B, h, K, K), value (B, h, K, dk) -> (B, K, K, 9). The

@@ -1,0 +1,299 @@
+"""Training solver: the epoch loop, in-loop validation, checkpoints and
+telemetry, as ``spacap3d_tpu/train/solver.py`` (reference lib/solver.py:80-697)
+for one process on one device:
+
+  * each iteration runs the train step (``train/step.py``) on a batch of
+    the train loader;
+  * fetch and step times are kept (reference :464-505), with an ETA; the
+    step time is taken on sampled iterations only, every
+    ``min(verbose, 50)``, behind a device synchronisation, so that the other
+    iterations queue their work without waiting for it;
+  * validation every ``val_step`` iterations runs ``eval_cap`` on the val
+    loader and keeps the best checkpoint (``model.ckpt``) by ``criterion``
+    (default CIDEr, :556-580); ``model_last.ckpt`` is written every
+    ``ckpt_every`` epochs and after the last, on a background thread;
+  * the BN momentum of detection pretraining: 0.5 * rate^(epoch // step),
+    floored at 0.001 (:179-187); 0.1 otherwise.
+
+Dropout masks come from a generator on the model's device seeded from
+(``TrainConfig.seed``, the global iteration) at every step, so a resumed
+run draws the masks an uninterrupted one would. They are not the JAX
+package's masks: the two frameworks' random streams differ.
+
+The JAX solver's multi-process and tensor-parallel branches (its
+``_NullLogger``, process index and count, the TP layout on restore) belong
+to the port's parallel runtimes and are not here.
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spacap3d_tpu_torch.config import RunConfig
+from spacap3d_tpu_torch.eval.eval_helper import eval_cap, eval_device
+from spacap3d_tpu_torch.train.step import make_eval_step, make_optimizer, make_train_step
+from spacap3d_tpu_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint
+from spacap3d_tpu_torch.utils.logging import RunLogger, decode_eta
+
+BN_MOMENTUM_INIT = 0.5
+BN_MOMENTUM_MAX = 0.001
+CAPTION_METRICS = ("bleu-1", "bleu-2", "bleu-3", "bleu-4", "cider", "rouge", "meteor")
+SUM_METRICS = ("bleu-4", "cider", "rouge", "meteor")
+
+
+def synchronize(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Solver:
+    """``model`` must lie on ``device``. ``timing`` holds every sampled
+    step time, every fetch time and every validation's wall time, in
+    seconds (``step``, ``fetch``, ``val``)."""
+
+    def __init__(
+        self,
+        run_cfg: RunConfig,
+        model: torch.nn.Module,
+        train_loader,
+        val_loader,
+        train_dataset,
+        val_dataset,
+        vocab,
+        dataset_config,
+        corpus_annotations,
+        stamp: str,
+        device="cuda",
+        eval_on_train: bool = False,
+        meteor_jar: Optional[str] = None,
+        train_eval_loader=None,
+        train_eval_dataset=None,
+        train_corpus_annotations=None,
+    ):
+        self.device = eval_device(model, device)
+        self.cfg = run_cfg
+        self.tc = run_cfg.train
+        self.mc = run_cfg.model
+        self.model = model
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.train_dataset = train_dataset
+        self.val_dataset = val_dataset
+        self.vocab = vocab
+        self.dc = dataset_config
+        self.corpus_annotations = corpus_annotations
+        self.stamp = stamp
+        self.start_epoch = 0
+        self.eval_on_train = eval_on_train
+        self.meteor_jar = meteor_jar
+        self.train_eval_loader = train_eval_loader
+        self.train_eval_dataset = train_eval_dataset
+        self.train_corpus_annotations = train_corpus_annotations
+
+        self.root = os.path.join(run_cfg.output_dir, stamp)
+        self.logger = RunLogger(self.root)
+        self.ckpt = AsyncCheckpointer()
+        self.optimizer, self.scheduler = make_optimizer(model, self.tc, len(train_loader))
+        self.train_step = make_train_step(self.mc, self.tc, self.optimizer, self.device,
+                                          self.scheduler)
+        self.eval_step = make_eval_step(self.mc, self.device)
+
+        self.best = {"epoch": 0, **{k: -float("inf") for k in CAPTION_METRICS},
+                     "sum": -float("inf")}
+        self.global_iter = 0
+        self.timing = {"fetch": [], "step": [], "val": []}
+
+    # ------------------------------------------------------------------
+    def bn_momentum(self, epoch: int) -> float:
+        if not self.tc.no_caption:
+            return 0.1  # torch default; only detection pretraining schedules it
+        m = BN_MOMENTUM_INIT * (self.tc.bn_decay_rate ** (epoch // self.tc.bn_decay_step))
+        return max(m, BN_MOMENTUM_MAX)
+
+    def dropout_generator(self, global_iter: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((self.tc.seed * 1_000_003 + global_iter) % (2 ** 63))
+        return gen
+
+    def _save(self, name: str, epoch: int):
+        payload = {
+            "epoch": epoch,
+            "iter": self.global_iter,
+            "model_state_dict": self.model.state_dict(),
+            "optimizer_state_dict": self.optimizer.state_dict(),
+            "scheduler_state_dict": (None if self.scheduler is None
+                                     else self.scheduler.state_dict()),
+            "best": dict(self.best),
+        }
+        self.ckpt.save(os.path.join(self.root, name), payload)
+
+    def restore(self, path: str):
+        payload = load_checkpoint(path)
+        self.model.load_state_dict(payload["model_state_dict"])
+        self.optimizer.load_state_dict(payload["optimizer_state_dict"])
+        if self.scheduler is not None:
+            self.scheduler.load_state_dict(payload["scheduler_state_dict"])
+        # native types for json.dump in dump_scalars and best.json
+        self.best = {k: int(v) if k == "epoch" else float(v)
+                     for k, v in payload["best"].items()}
+        self.global_iter = int(payload["iter"])
+        self.start_epoch = int(payload["epoch"]) + 1
+
+    # ------------------------------------------------------------------
+    def profile(self, num_steps: int = 5):
+        """A torch.profiler trace of ``num_steps`` train steps (real
+        updates) into <run>/profile/trace.json, one warm-up step outside it
+        (the port's counterpart of the reference's wall-clock telemetry,
+        lib/solver.py:464-505). View it in chrome://tracing or Perfetto."""
+        from torch.profiler import ProfilerActivity, profile
+
+        trace_dir = os.path.join(self.root, "profile")
+        batch = next(iter(self.train_loader))
+        self.train_step(self.model, batch, self.dropout_generator(0), 0.1)
+        synchronize(self.device)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            for i in range(num_steps):
+                self.train_step(self.model, batch, self.dropout_generator(i + 1), 0.1)
+            synchronize(self.device)
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        self.logger.log(f"profiler trace written to {trace_dir}")
+        return trace_dir
+
+    # ------------------------------------------------------------------
+    def __call__(self, epochs: int, verbose: int = 1000):
+        total_iters = len(self.train_loader) * epochs
+        t_start = time.time()
+        try:
+            for epoch in range(self.start_epoch, epochs):
+                self.logger.log(f"epoch {epoch + 1} starting...")
+                self._feed_epoch(epoch, self.bn_momentum(epoch), verbose, total_iters, t_start)
+                if (epoch + 1) % self.tc.ckpt_every == 0 or epoch == epochs - 1:
+                    self._save("model_last.ckpt", epoch)
+        except KeyboardInterrupt:
+            self.logger.log("interrupted; saving previous-epoch snapshot...")
+            self.ckpt.wait()
+            self.logger.dump_scalars()
+            raise
+        self.ckpt.wait()
+        self._finish()
+
+    def _feed_epoch(self, epoch, momentum, verbose, total_iters, t_start):
+        # pin the loader's shuffle epoch to the true epoch index, so that a
+        # --use_checkpoint restart sees the batch order an uninterrupted run
+        # would (the loader otherwise counts its own __iter__ calls from 0)
+        self.train_loader.epoch = epoch
+        sample_every = max(1, min(verbose, 50))
+        epoch_fetch, epoch_step = [], []
+        epoch_t0 = time.time()
+        n_iters = 0
+        fetch_t0 = time.time()
+        for batch in self.train_loader:
+            fetch_time = time.time() - fetch_t0
+            gen = self.dropout_generator(self.global_iter)
+            sampled = self.global_iter % sample_every == 0
+            if sampled:
+                synchronize(self.device)
+            t0 = time.time()
+            metrics = self.train_step(self.model, batch, gen, momentum)
+            if sampled:
+                synchronize(self.device)
+                step_time = time.time() - t0
+                epoch_step.append(step_time)
+                self.timing["step"].append(step_time)
+            if (self.global_iter + 1) % verbose == 0 or self.global_iter == 0:
+                metrics = {k: v.item() for k, v in metrics.items()}
+                step_time = time.time() - t0
+                self._report(epoch, metrics, fetch_time, step_time, total_iters, t_start)
+                for k, v in metrics.items():
+                    self.logger.scalar("train", k, v, self.global_iter)
+            epoch_fetch.append(fetch_time)
+            self.timing["fetch"].append(fetch_time)
+
+            self.global_iter += 1
+            n_iters += 1
+            if self.tc.val_step and self.global_iter % self.tc.val_step == 0:
+                self._validate(epoch)
+            fetch_t0 = time.time()
+        epoch_wall = time.time() - epoch_t0
+        if n_iters:
+            mean_fetch = float(np.mean(epoch_fetch)) * 1000
+            mean_step = float(np.mean(epoch_step)) * 1000 if epoch_step else 0.0
+            self.logger.log(
+                f"epoch {epoch + 1} done | {n_iters} iters in "
+                f"{epoch_wall:.1f}s ({epoch_wall / n_iters * 1000:.0f}ms/iter) "
+                f"| mean fetch {mean_fetch:.0f}ms | mean step {mean_step:.0f}ms "
+                f"(synchronised, {len(epoch_step)} samples)")
+            self.logger.scalar("train", "mean_fetch_ms", mean_fetch, self.global_iter)
+            self.logger.scalar("train", "mean_step_ms", mean_step, self.global_iter)
+
+    def _report(self, epoch, metrics, fetch_time, step_time, total_iters, t_start):
+        done = max(self.global_iter, 1)
+        eta = decode_eta((time.time() - t_start) / done * (total_iters - done))
+        parts = [f"epoch {epoch + 1} iter {self.global_iter}/{total_iters}"]
+        for k in ("loss", "det_loss", "cap_loss", "relation_loss", "cap_acc", "obj_acc"):
+            if k in metrics:
+                parts.append(f"{k} {metrics[k]:.4f}")
+        parts.append(f"fetch {fetch_time * 1000:.0f}ms step {step_time * 1000:.0f}ms")
+        parts.append(f"eta {eta['h']}h{eta['m']}m")
+        self.logger.log(" | ".join(parts))
+
+    # ------------------------------------------------------------------
+    def _validate(self, epoch):
+        if self.tc.no_caption or self.val_loader is None:
+            return
+        t0 = time.perf_counter()
+        # pin the val (and eval-on-train) loaders' subsample epoch to the
+        # validation count, derived from global_iter, so that a restart
+        # validates on the subsamples an uninterrupted run would
+        if self.tc.val_step:
+            val_idx = max(0, self.global_iter // self.tc.val_step - 1)
+            for loader in (self.val_loader, self.train_eval_loader):
+                if loader is not None:
+                    loader.epoch = val_idx
+        if self.eval_on_train and self.train_eval_loader is not None:
+            self.logger.log("evaluating on train split...")
+            train_metrics, _ = eval_cap(
+                self.eval_step, self.model, self.train_eval_dataset, self.train_eval_loader,
+                self.vocab, self.dc, self.train_corpus_annotations,
+                corpus_cache=os.path.join(self.root, "corpus_train.json"),
+                pred_path=os.path.join(self.root, "pred_train.json"),
+                meteor_jar=self.meteor_jar, device=self.device)
+            for k, v in train_metrics.items():
+                if isinstance(v, (int, float)):
+                    self.logger.scalar("train", f"eval_{k}", v, self.global_iter)
+        self.logger.log("validating...")
+        metrics, _ = eval_cap(
+            self.eval_step, self.model, self.val_dataset, self.val_loader, self.vocab, self.dc,
+            self.corpus_annotations,
+            corpus_cache=os.path.join(self.root, "corpus_val.json"),
+            pred_path=os.path.join(self.root, "pred_val.json"),
+            meteor_jar=self.meteor_jar, device=self.device)
+        for k, v in metrics.items():
+            if isinstance(v, (int, float)):
+                self.logger.scalar("val", k, v, self.global_iter)
+        crit = self.tc.criterion
+        total = sum(metrics[k] for k in SUM_METRICS)
+        cur = total if crit == "sum" else metrics[crit]
+        self.logger.log("val: " + " ".join(f"{k}={metrics[k]:.4f}" for k in SUM_METRICS))
+        if cur > self.best[crit]:
+            self.logger.log(f"new best {crit}: {cur:.4f} (epoch {epoch + 1})")
+            self.best.update({k: metrics.get(k, self.best.get(k)) for k in CAPTION_METRICS})
+            self.best["epoch"] = epoch + 1
+            self.best["sum"] = total
+            self._save("model.ckpt", epoch)
+        self.timing["val"].append(time.perf_counter() - t0)
+
+    def _finish(self):
+        with open(os.path.join(self.root, "best.txt"), "w") as f:
+            for k, v in self.best.items():
+                f.write(f"{k}: {v}\n")
+        self.logger.write_json("best.json", self.best)
+        self.logger.close()

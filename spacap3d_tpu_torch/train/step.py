@@ -4,7 +4,8 @@ Train: forward (batch-statistics BN, dropout), losses, backward, two-group
 Adam with torch's coupled weight decay (the JAX chain
 ``add_decayed_weights -> scale_by_adam -> lr``) and the BN running-stat
 update. Eval: the eval forward (with greedy decode) plus the detection
-side-outputs the eval harness reads.
+side-outputs the eval harness reads. The attention dump: the detector in
+eval mode, then the teacher-forced captioner over the greedy tokens.
 """
 from __future__ import annotations
 
@@ -112,6 +113,24 @@ def make_eval_step(cfg: ModelConfig, device="cuda", compact: bool = False) -> Ca
         return eval_tail(cfg, ep, batch, compact)
 
     return step
+
+
+def make_attn_dump_step(device="cuda") -> Callable:
+    """Returns dump(model, batch, tokens) -> (enc_attn (L, B, h, K, K),
+    dec_attn (L, B*K, h, T', T')), as the JAX package's
+    ``make_attn_dump_step``: the detector in eval mode over
+    ``batch["point_clouds"]``, then ``Captioner.attention_dump`` over the
+    generated ``tokens`` (B, K, T), on ``device``."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def dump(model, batch, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+        model.eval()
+        ep = model.detect(to_device_batch({"point_clouds": batch["point_clouds"]},
+                                          dev)["point_clouds"])
+        return model.caption.attention_dump(ep, torch.as_tensor(tokens).to(dev))
+
+    return dump
 
 
 def make_optimizer(model: torch.nn.Module, tc: TrainConfig, steps_per_epoch: int

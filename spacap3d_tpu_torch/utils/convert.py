@@ -106,11 +106,17 @@ _UNUSED_EARLY_GUIDE = re.compile(
     r"caption\.model\.decoder\.layers\.\d+\.(src_attn\.|sublayer\.1\.)")
 
 
-def load_reference_state_dict(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
-    """Loads a reference checkpoint's state dict by name (strict), after
-    dropping the keys listed above."""
+def load_reference_state_dict(model: nn.Module, sd: Mapping[str, torch.Tensor],
+                              strict: bool = True) -> int:
+    """Loads a reference checkpoint's state dict by name, after dropping the
+    keys listed above; returns the number of tensors loaded. ``strict=False``
+    loads a part of the model (a detector-only checkpoint) but still raises
+    on a key the model lacks."""
     early = getattr(model.cfg, "early_guide", True)
     keep = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
     keep = {k: v for k, v in keep.items()
             if not k.endswith(".pe") and not (early and _UNUSED_EARLY_GUIDE.match(k))}
-    model.load_state_dict(keep, strict=True)
+    unexpected = model.load_state_dict(keep, strict=strict).unexpected_keys
+    if unexpected:
+        raise KeyError(f"keys the model lacks: {unexpected[:5]}")
+    return len(keep)

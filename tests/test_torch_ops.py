@@ -372,3 +372,33 @@ def test_port_reads_no_jax_package_file_by_path():
                 if hits:
                     found[os.path.relpath(os.path.join(dirpath, name), root)] = hits
     assert not found, found
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    """Every module of the port, its command lines under ``scripts/``
+    included, names neither JAX nor the JAX package in an import at any
+    depth of its AST (imports inside functions, which importing the
+    module does not run, too)."""
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "spacap3d_tpu_torch")
+    checked, bad = set(), {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                     for a in n.names]
+            names += [n.module for n in ast.walk(tree)
+                      if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+            rel = os.path.relpath(path, root)
+            checked.add(rel)
+            hits = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "spacap3d_tpu")]
+            if hits:
+                bad[rel] = hits
+    assert not bad, bad
+    for rel in ("scripts/train.py", "scripts/eval.py", "scripts/overfit_gate.py",
+                "scripts/profile_step.py", "train/solver.py", "utils/checkpoint.py"):
+        assert rel in checked, rel
