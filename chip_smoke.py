@@ -67,6 +67,8 @@ from spacap3d_tpu_torch.models import SpaCapNet, init_spacap
 from spacap3d_tpu_torch.models.core import BatchNorm
 from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.ops.ball_query import launch_ball_query
+from spacap3d_tpu_torch.parallel.mp_dryrun import GRID_MIN_IOU, grid_dataset, launch
+from spacap3d_tpu_torch.parallel.tp import TPMesh, shard_model
 from spacap3d_tpu_torch.scripts import eval as eval_cli
 from spacap3d_tpu_torch.scripts import overfit_gate
 from spacap3d_tpu_torch.scripts import train as train_cli
@@ -152,6 +154,28 @@ MUL_EVAL_GATE_SCENES, MUL_EVAL_GATE_SEEDS, MUL_EVAL_GATE_IOU = 16, [0, 1], 0.05
 CLI_TRAIN_SCENES, CLI_VAL_SCENES, CLI_VIS_SCENES = 16, 8, 2
 CLI_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
 OVERFIT_ARGS = ["--scenes", "4", "--epochs", "250", "--threshold", "0.5"]
+# the parallel phase: ranks started as processes (parallel/mp_dryrun.py and
+# the command lines with --multihost); every world has at most
+# PARALLEL_TIMEOUT seconds and each rank's collectives PARALLEL_COLLECTIVE_S.
+# P1 (NCCL, a world of one) takes 3 steps at the default dropout; P2 (two
+# gloo ranks sharing the card) one step of 4 rows a rank at dropout 0, held
+# to the 1-process step on the 8 rows within rel 1e-5 plus TRAIN_LOSS_ATOL
+# (1e-5): with every FPS, ball-query and max-pool choice pinned, the ranks'
+# BN sums still round apart from the 8-row sums, and heading_reg_loss, a
+# mean over the ~30 positive proposals' head outputs, moved 5.0e-6 (rel
+# 3.8e-5) on an H100 80GB HBM3, 700 W, as such terms move between CPU
+# and card;
+# P3 (TP = 2 in the same world) the eval forward and one train step; P4 the
+# seed-sharded grid over 16 scenes of the cli split x 4 seeds; P5 the
+# command lines with --multihost on two ranks.
+PARALLEL_TIMEOUT, PARALLEL_COLLECTIVE_S = 300, 120
+PARALLEL_P1_STEPS, PARALLEL_P1_RTOL = 3, 1e-6
+PARALLEL_RTOL, PARALLEL_ATOL = 1e-5, TRAIN_LOSS_ATOL
+PARALLEL_OBJ_ATOL = 1e-5
+PARALLEL_GRID_SCENES, PARALLEL_GRID_SEEDS = 16, 4
+PARALLEL_P1_BACKEND = "nccl"
+PARALLEL_CLI_ARCH = ["--arch_preset", "full"]
+PARALLEL_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
 # the kernels whose device time the forward's profile reports, by kernel name
 PROFILED = {"fps": "fps_kernel", "ball_query": "ball_query_kernel",
             "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel"}
@@ -1705,6 +1729,276 @@ def phase_cli():
     return launches
 
 
+def run_ranks(cmd, world, what, expect_fail=False):
+    """``python *cmd`` on ``world`` ranks (``mp_dryrun.launch``); raises
+    unless every rank exits 0. Returns the finished processes."""
+    t0 = time.perf_counter()
+    done = launch(cmd, world, PARALLEL_TIMEOUT)
+    bad = [(r, p.returncode, p.stdout[-1500:], p.stderr[-3000:])
+           for r, p in enumerate(done) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"{what}: ranks failed: {bad}")
+    log("parallel", leg=what, ranks=world, wall_s=time.perf_counter() - t0)
+    return done
+
+
+def dryrun(out, world, backend, cfg, *args):
+    """``mp_dryrun`` on ``world`` ranks of ``backend`` on the card, at the
+    width of ``cfg``; returns each rank's JSON."""
+    os.makedirs(out, exist_ok=True)
+    cfg_path = os.path.join(out, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    run_ranks(["-m", "spacap3d_tpu_torch.parallel.mp_dryrun", "--out", out, "--device", DEV,
+               "--backend", backend, "--timeout", str(PARALLEL_COLLECTIVE_S), "--config",
+               cfg_path, *map(str, args)], world, f"mp_dryrun {args[1]} ({backend})")
+    results = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def refuse_nccl(out):
+    """P0: two ranks asking NCCL for the one card must both be refused by
+    the runtime's own message, naming gloo."""
+    done = run_ranks(["-m", "spacap3d_tpu_torch.parallel.mp_dryrun", "--out", out, "--legs",
+                      "refuse_nccl", "--device", DEV, "--timeout", str(PARALLEL_COLLECTIVE_S)],
+                     2, "P0 refuse_nccl")
+    refusals = [p.stdout.strip().splitlines()[-1] for p in done]
+    if not all(r.startswith("refused: NCCL cannot run two ranks on one device")
+               and "backend='gloo'" in r for r in refusals):
+        raise AssertionError(f"P0: {refusals}")
+    log("parallel", leg="P0", refusals=refusals)
+
+
+def metric_misses(got, want, rtol, atol):
+    """The metrics of ``want`` that ``got`` misses by more than atol + rtol
+    |want|, with both values."""
+    return {k: (got[k], v) for k, v in want.items() if abs(got[k] - v) > atol + rtol * abs(v)}
+
+
+def check_launches(what, per_call):
+    bad = [c for c in per_call if c != PARALLEL_WANT]
+    if bad or not per_call:
+        raise AssertionError(f"{what}: {len(bad)} of {len(per_call)} calls launched other "
+                             f"than {PARALLEL_WANT}: {bad[:3]}")
+
+
+def parallel_shared_card(out, cfg, smi, launches):
+    """P0 and P1 of ``phase_parallel``: NCCL refusing two ranks on the card,
+    and NCCL over a world of one against the plain steps."""
+    refuse_nccl(os.path.join(out, "p0"))
+    # P1: NCCL, a world of one
+    p1 = dryrun(os.path.join(out, "p1"), 1, PARALLEL_P1_BACKEND, cfg, "--legs", "dp",
+                "--global_batch", B, "--steps", PARALLEL_P1_STEPS, "--dropout",
+                cfg.transformer_dropout, "--plain", "--deterministic")[0]["dp"]
+    misses = [metric_misses(g["metrics"], w["metrics"], PARALLEL_P1_RTOL, 0.0)
+              for g, w in zip(p1["steps"], p1["plain_steps"])]
+    check_launches("P1 steps", [s["launches"] for s in p1["steps"]])
+    launches["P1_nccl_step"] = [s["launches"] for s in p1["steps"]]
+    log("parallel", leg="P1", backend=PARALLEL_P1_BACKEND, world=1, steps=PARALLEL_P1_STEPS,
+        dropout=cfg.transformer_dropout, max_metric_rel=max(p1["plain_rel"]),
+        bit_equal=p1["plain_bit_equal"], max_param_abs_diff=p1["plain_param_max_abs"],
+        step_ms=[s["ms"] for s in p1["steps"]],
+        plain_step_ms=[s["ms"] for s in p1["plain_steps"]],
+        launches_per_step=launches["P1_nccl_step"], nvidia_smi=smi)
+    if any(misses):
+        raise AssertionError(f"P1: group path against plain: {misses}")
+
+
+def phase_parallel(smi, ranks=2, backend="gloo"):
+    """The parallel runtimes on the card (``spacap3d_tpu_torch/parallel``),
+    every rank a process of its own, so that this process holds no process
+    group; the kernel library is already built. P0: NCCL asked for two
+    ranks on one card refuses. P1: NCCL over a world of one at full width
+    (default ModelConfig and TrainConfig, B = 8, 40,000 points, dropout
+    0.1): PARALLEL_P1_STEPS group-path steps against as many plain steps
+    from the same weights, batch and generators, every metric within rel
+    1e-6, under torch's deterministic algorithms (the backward's atomic
+    sums would otherwise make two runs of one step differ in the last
+    bits, which Adam turns into other updates of near-zero gradients).
+    P2: two gloo ranks sharing the card, 4 rows each of the same batch at
+    dropout 0, one step against the 1-process step on the 8 rows (rank
+    0's), each rank's FPS and ball-query indices and max-pools pinned to
+    that step's (a BN statistic's two sums round apart, which moves the
+    votes that the aggregation samples and groups, and flips near ties;
+    the flips are logged): every metric
+    within rel PARALLEL_RTOL plus PARALLEL_ATOL, the ranks' parameters and
+    BN buffers bit-equal. P3: tensor parallelism over the
+    same two ranks: the eval forward's tokens against the replicated
+    forward's here (equal, or each differing row a near tie by
+    ``compare_tokens``), objectness within 1e-5, and one TP train step's
+    metrics against P2's 1-process step as P2's, the ranks' parameters
+    bit-equal after it. P4: the
+    seed-sharded grid over PARALLEL_GRID_SCENES scenes of the cli split x
+    PARALLEL_GRID_SEEDS seeds against the 1-process grid here: equal rows.
+    P5: the train CLI with --multihost on two ranks (one epoch, one
+    validation) writes one run directory, from rank 0; the eval CLI with
+    --multihost --mul_eval gives the 1-process CLI's rows. Every train step
+    and forward of P1-P4 launches FPS 2, ball query 5 and the decode
+    kernels 0 times on each rank. Returns those launches by leg.
+
+    ``python3 chip_smoke.py --ranks N`` runs P2-P5 alone over N ranks, one
+    card a rank over NCCL (TP then splits the world into N / 2 data x 2
+    model ranks); P0 and P1 belong to the shared card."""
+    cfg = ModelConfig()
+    dev = torch.device(DEV)
+    launches = {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="parallel_") as root:
+        out = os.path.join(root, "runs")
+        if backend == "gloo":       # the ranks share one card
+            parallel_shared_card(out, cfg, smi, launches)
+        # the cli split, and weights that detect (the objectness-1 logit +2)
+        t0 = time.perf_counter()
+        train_anns, val_anns, _ = cli_split(root)
+        model = init_spacap(cfg, seed=0, device=DEV)
+        with torch.no_grad():
+            model.proposal.proposal[6].bias[1] += 2.0
+        weights = os.path.join(root, "weights.pt")
+        torch.save(model.state_dict(), weights)
+        log("parallel", split_write_s=time.perf_counter() - t0)
+
+        # P2-P4: two gloo ranks sharing the card
+        seeds = list(range(PARALLEL_GRID_SEEDS))
+        p2_dir = os.path.join(out, "p2")
+        results = dryrun(p2_dir, ranks, backend, cfg, "--legs", "dp,tp,grid", "--global_batch", B,
+                       "--weights", weights, "--plain", "--pin", "--data_root", root,
+                       "--anns",
+                       os.path.join(root, "ScanRefer_filtered_train.json"), "--vocab",
+                       os.path.join(root, "ScanRefer_vocabulary.json"), "--scenes",
+                       PARALLEL_GRID_SCENES, "--seeds", ",".join(map(str, seeds)),
+                       "--grid_batch", B, "--workers", 4)
+        dp = [r["dp"] for r in results]
+        plain = dp[0]["plain_steps"][0]["metrics"]
+        p2_miss = [metric_misses(d["steps"][0]["metrics"], plain, PARALLEL_RTOL, PARALLEL_ATOL)
+                   for d in dp]
+        same = {k: len({d[k] for d in dp}) == 1 for k in ("param_digest", "bn_digest")}
+        launches["P2_dp_step"] = [d["steps"][0]["launches"] for d in dp]
+        check_launches("P2 steps", launches["P2_dp_step"])
+        rel = {k: abs(v - plain[k]) / max(abs(plain[k]), 1e-12)
+               for k, v in dp[0]["steps"][0]["metrics"].items()}
+        log("parallel", leg="P2", backend=backend, world=ranks,
+            rows_per_rank=[d["rows"] for d in dp], pinned=dp[1]["pinned"], pool_flips=[d["pool_flips"] for d in dp],
+            index_flips=[d["index_flips"] for d in dp],
+            metric_rel=rel, misses=p2_miss,
+            ranks_bit_equal=same,
+            max_param_abs_diff_vs_plain=dp[0]["plain_param_max_abs"],
+            step_ms=[d["steps"][0]["ms"] for d in dp],
+            plain_step_ms=dp[0]["plain_steps"][0]["ms"], launches=launches["P2_dp_step"],
+            nvidia_smi=smi)
+        if any(p2_miss) or not all(same.values()):
+            raise AssertionError(f"P2: {p2_miss}, ranks bit-equal {same}")
+
+        tp = [r["tp"] for r in results]
+        got = torch.load(os.path.join(p2_dir, "tp_eval.pt"), weights_only=True)
+        batch = train_batch(cfg, B, seed=0)
+        dev_batch = to_device_batch({k: batch[k] for k in ("point_clouds", "center_label")},
+                                    dev)
+        want = make_eval_step(cfg, device=DEV)(model, dev_batch)
+        tokens = compare_tokens({"model": model}, dev_batch, want["lang_cap"],
+                                got["lang_cap"].to(dev))
+        obj = float((got["objectness_scores"].to(dev) - want["objectness_scores"]).abs().max())
+        tp_miss = [metric_misses(t["steps"][0]["metrics"], plain, PARALLEL_RTOL, PARALLEL_ATOL)
+                   for t in tp]
+        launches["P3_tp_eval"] = [t["eval_launches"] for t in tp]
+        launches["P3_tp_step"] = [t["steps"][0]["launches"] for t in tp]
+        check_launches("P3", launches["P3_tp_eval"] + launches["P3_tp_step"])
+        try:
+            shard_model(SpaCapNet(dataclasses.replace(cfg, eval_decode_fused=True)),
+                        TPMesh(2, None, None, 0, 0, 1))
+            fused_refused = False
+        except NotImplementedError:
+            fused_refused = True
+        tp_same = len({t["param_digest"] for t in tp}) == 1
+        log("parallel", leg="P3", tp=2, sharded_parameters=tp[0]["sharded_parameters"],
+            tokens=tokens, token_digests_equal=len({t["token_digest"] for t in tp}) == 1,
+            objectness_max_abs=obj, step_misses=tp_miss,
+            step_ms=[t["steps"][0]["ms"] for t in tp], ranks_bit_equal=tp_same,
+            fused_decode_refused=fused_refused, launches={k: launches[k] for k in (
+                "P3_tp_eval", "P3_tp_step")}, nvidia_smi=smi)
+        if obj > PARALLEL_OBJ_ATOL or any(tp_miss) or not fused_refused or not tp_same:
+            raise AssertionError(f"P3: objectness {obj}, step {tp_miss}, fused refused "
+                                 f"{fused_refused}, ranks bit-equal {tp_same}")
+
+        grid = [r["grid"] for r in results]
+        anns, ds, vocab, dc = grid_dataset(root, os.path.join(
+            root, "ScanRefer_filtered_train.json"), os.path.join(
+            root, "ScanRefer_vocabulary.json"), cfg, PARALLEL_GRID_SCENES)
+        t0 = time.perf_counter()
+        want_rows = mul_eval_grid(make_eval_step(cfg, device=DEV, compact=True), model, ds,
+                                  vocab, dc, prepare_corpus(anns), organize_annotations(anns),
+                                  seeds, B, min_iou=GRID_MIN_IOU, num_workers=4,
+                                  score_workers=4, device=DEV)
+        one_s = time.perf_counter() - t0
+        launches["P4_grid_forward"] = [c for g in grid for c in g["launches"]]
+        check_launches("P4", launches["P4_grid_forward"])
+        log("parallel", leg="P4", seeds=seeds, scenes=PARALLEL_GRID_SCENES,
+            local_seeds=[g["local_seeds"] for g in grid], forwards=[g["forwards"] for g in grid],
+            rank_grid_s=[g["seconds"] for g in grid], one_process_grid_s=one_s,
+            rows_equal=all(g["rows"] == want_rows for g in grid), rows=want_rows)
+        if not all(g["rows"] == want_rows for g in grid) or want_rows[0] == want_rows[1]:
+            raise AssertionError(f"P4: rows {[g['rows'] for g in grid]} against {want_rows}")
+
+        # P5: the command lines over two gloo ranks sharing the card
+        cli_out = os.path.join(root, "outputs")
+        steps_per_epoch = len(train_anns) // B
+        train = ["-m", "spacap3d_tpu_torch.scripts.train", "--multihost", "--dist_backend",
+                 backend, "--dist_timeout", str(PARALLEL_COLLECTIVE_S), "--device", DEV,
+                 "--data_root", root, "--output_dir", cli_out, *PARALLEL_CLI_ARCH,
+                 "--batch_size", str(B), "--epoch", "1", "--val_step", str(steps_per_epoch - 2),
+                 "--verbose", "8", "--num_workers", "4", "--seed", "0", "--tag", "mh"]
+        t0 = time.perf_counter()
+        logs = run_ranks(train, ranks, "P5 train --multihost")
+        train_s = time.perf_counter() - t0
+        runs = os.listdir(cli_out)
+        run_root = os.path.join(cli_out, runs[0])
+        files = sorted(os.listdir(run_root))
+        missing = [f for f in ("config.json", "info.json", "log.txt", "all_scalars.json",
+                               "model_last.ckpt", "model.ckpt", "best.txt") if f not in files]
+        with open(os.path.join(run_root, "log.txt")) as f:
+            epoch_line = [ln for ln in f.read().splitlines() if "done |" in ln]
+        ckpt = load_checkpoint(os.path.join(run_root, "model_last.ckpt"))
+        ckpt["model_state_dict"]["proposal.proposal.6.bias"][1] += 2.0
+        save_checkpoint_sync(os.path.join(run_root, "detects.ckpt"), ckpt)
+        ev = ["--folder", runs[0], "--data_root", root, "--output_dir", cli_out,
+              "--checkpoint", "detects.ckpt", "--min_iou", str(MUL_EVAL_GATE_IOU),
+              "--mul_eval", "--num_seeds", str(PARALLEL_GRID_SEEDS), "--batch_size", str(B),
+              "--num_workers", "4", "--device", DEV]
+        t0 = time.perf_counter()
+        ev_logs = run_ranks(["-m", "spacap3d_tpu_torch.scripts.eval", "--multihost",
+                             "--dist_backend", backend, "--dist_timeout",
+                             str(PARALLEL_COLLECTIVE_S), "--eval_tag", "mh", *ev], ranks,
+                            "P5 eval --multihost --mul_eval")
+        eval_s = time.perf_counter() - t0
+        printed = [json.loads(ln) for ln in ev_logs[0].stdout.splitlines()
+                   if ln.startswith('{"seed"')]
+        t0 = time.perf_counter()
+        one = eval_cli.main(["--eval_tag", "sp", *ev])
+        with open(os.path.join(run_root, "mh_results.csv")) as f:
+            mh_csv = f.read()
+        with open(os.path.join(run_root, "sp_results.csv")) as f:
+            sp_csv = f.read()
+        quiet = all("iter" not in t.stdout and not any(
+            ln.startswith('{"seed"') for ln in e.stdout.splitlines())
+            for t, e in zip(logs[1:], ev_logs[1:]))
+        log("parallel", leg="P5", runs=runs, files=files, missing=missing,
+            epoch=epoch_line, train_wall_s=train_s, eval_wall_s=eval_s,
+            one_process_eval_s=time.perf_counter() - t0, rows=printed,
+            rows_equal=printed == one and mh_csv == sp_csv, other_ranks_silent=quiet)
+        if (len(runs) != 1 or missing or printed != one or mh_csv != sp_csv or not quiet
+                or printed[0] == printed[1]):
+            raise AssertionError(f"P5: runs {runs}, missing {missing}, rows {printed} "
+                                 f"against {one}, other ranks silent {quiet}")
+    return launches
+
+
+def device_info():
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1721,6 +2015,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log("build", seconds=time.perf_counter() - t0, ptxas=_build.ptxas_info())
+    if "--ranks" in sys.argv:
+        ranks = int(sys.argv[sys.argv.index("--ranks") + 1])
+        if torch.cuda.device_count() < ranks:
+            raise SystemExit(f"--ranks {ranks} needs {ranks} cards, not "
+                             f"{torch.cuda.device_count()}")
+        launches = phase_parallel(smi, ranks, "nccl")
+        print(json.dumps({"parallel_launches": launches}), flush=True)
+        print(json.dumps({"ok": True, "device": device_info()}), flush=True)
+        return 0
 
     per_shape = phase_kernels()
     per_shape.update(phase_decode_kernels())
@@ -1730,6 +2033,7 @@ def main() -> int:
     phase_cpu_vs_gpu_train()
     mul_eval_launches = phase_mul_eval(forward_scenes_per_s)
     cli_launches = phase_cli()
+    parallel_launches = phase_parallel(smi)
 
     meta = {
         "fps": ("spacap3d_tpu_torch/csrc/fps.cu", "spacap3d_tpu/ops/fps_pallas.py:35"),
@@ -1752,6 +2056,8 @@ def main() -> int:
             "train_launches": train_launches[name],
             "mul_eval_launches": mul_eval_launches[name],
             "cli_launches": cli_launches[name],
+            "parallel_launches": {leg: [c[name] for c in per]
+                                  for leg, per in parallel_launches.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -1777,10 +2083,7 @@ def main() -> int:
             kernels[-1]["chunk"] = main[0]["chunk"]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}),
-          flush=True)
+    print(json.dumps({"ok": True, "device": device_info()}), flush=True)
     return 0
 
 

@@ -33,7 +33,8 @@ class DataLoader:
     batch has one shape (the reference ran a ragged last batch)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, seed: int = 0,
-                 num_workers: int = 4, prefetch: int = 2, drop_last: bool = False):
+                 num_workers: int = 4, prefetch: int = 2, drop_last: bool = False,
+                 process_index: int = 0, process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -42,6 +43,16 @@ class DataLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.epoch = 0
+        # data parallelism: ``batch_size`` stays the global batch; every
+        # process computes the same index order (same seed and epoch) and
+        # builds only its contiguous row-block of each global batch. Items
+        # equal the single-process batch's, since the per-item RNG is keyed
+        # by (seed, epoch, dataset index), not by batch position.
+        if batch_size % max(1, process_count):
+            raise ValueError(f"global batch_size {batch_size} must divide evenly over "
+                             f"{process_count} processes")
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
 
     def __len__(self):
         n = len(self.dataset)
@@ -57,7 +68,7 @@ class DataLoader:
             idx = idx[: (n // self.batch_size) * self.batch_size]
         elif n % self.batch_size:
             pad = self.batch_size - n % self.batch_size
-            idx = np.concatenate([idx, idx[:pad]])
+            idx = np.concatenate([idx, np.resize(idx, pad)])   # cycled: n may be < pad
         return idx
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -72,6 +83,11 @@ class DataLoader:
         if not self.drop_last and n % self.batch_size:
             valid[n:] = False
         valid = valid.reshape(-1, self.batch_size)
+        if self.process_count > 1:
+            per = self.batch_size // self.process_count
+            lo = self.process_index * per
+            batches = batches[:, lo:lo + per]
+            valid = valid[:, lo:lo + per]
         epoch = self.epoch
         self.epoch += 1
 

@@ -692,9 +692,11 @@ class Meteor:
     the scripted fake jar without java. A jar process is expensive (JVM
     spawn + model load), so hold ONE ``Meteor`` per evaluation run and
     share it across seeds, exactly like the reference's single persistent
-    process (lib/capeval/meteor/meteor.py:12-26); ``close()`` when done."""
+    process (lib/capeval/meteor/meteor.py:12-26); ``close()`` when done.
+    ``wordnet_dir`` goes to ``MeteorLite``: None locates a dictionary, ""
+    turns its synonym stage off."""
 
-    def __init__(self, jar_path: str | None = None):
+    def __init__(self, jar_path: str | None = None, wordnet_dir: str | None = None):
         jar = jar_path or os.environ.get("SPACAP_METEOR_JAR", DEFAULT_METEOR_JAR)
         cmd_env = os.environ.get("SPACAP_METEOR_COMMAND")
         if cmd_env:
@@ -703,7 +705,8 @@ class Meteor:
             self._impl = MeteorJar(jar, command=shlex.split(cmd_env))
         else:
             self.is_exact = os.path.exists(jar)
-            self._impl = MeteorJar(jar) if self.is_exact else MeteorLite()
+            self._impl = (MeteorJar(jar) if self.is_exact
+                          else MeteorLite(wordnet_dir=wordnet_dir))
 
     def compute_score(self, gts: Dict, res: Dict):
         return self._impl.compute_score(gts, res)

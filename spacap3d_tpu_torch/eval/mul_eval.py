@@ -24,7 +24,7 @@ import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,7 +100,9 @@ class GridLoader:
         valid = np.ones(n, bool)
         if n % self.batch_size:
             pad = self.batch_size - n % self.batch_size
-            grid = np.concatenate([grid, grid[:pad]])
+            # cycled, so that a grid shorter than the pad fills it too (a
+            # rank's share of the seeds over a small split)
+            grid = np.concatenate([grid, np.resize(grid, (pad, 2))])
             valid = np.concatenate([valid, np.zeros(pad, bool)])
         return grid, valid
 
@@ -242,6 +244,8 @@ def mul_eval_grid(
     timing_out: Optional[Dict] = None,
     point_table: str = "auto",
     device="cuda",
+    progress: Optional[Callable[[int, int], None]] = None,
+    wordnet_dir: Optional[str] = None,
 ) -> List[Dict]:
     """Returns one metrics row per seed (reference CSV layout), running
     ``step(model, batch)`` (``make_eval_step``; the compact step fetches
@@ -265,7 +269,11 @@ def mul_eval_grid(
     per-row cloud upload when the dataset can't use the cached val path or
     the table exceeds the budget); 'off' forces the per-row upload. Rows
     are bit-identical either way (the f64->f32 cast and the row select
-    commute elementwise)."""
+    commute elementwise).
+
+    ``progress(i, n)`` is called after the i-th of the grid's n batches is
+    launched. ``wordnet_dir`` goes to METEOR's synonym stage (None: locate
+    a dictionary; "": off)."""
     if point_table not in ("auto", "off"):
         raise ValueError(f"point_table={point_table!r}: 'auto' or 'off'")
     dev = eval_device(model, device)
@@ -299,7 +307,7 @@ def mul_eval_grid(
     # every seed's scoring pass (bit-equal scores — see capeval.CiderRefs)
     cider_refs = capeval.CiderRefs(corpus)
     # one METEOR scorer for the whole run (one jar spawn, not one per seed)
-    meteor_scorer = capeval.Meteor(meteor_jar)
+    meteor_scorer = capeval.Meteor(meteor_jar, wordnet_dir=wordnet_dir)
 
     def submit_seed(seed):
         """Seed complete: score it now, overlapped with the stream."""
@@ -370,6 +378,8 @@ def mul_eval_grid(
                 pending = [f for f in pending + futures[-1:] if not f.done()]
                 while len(pending) > MAX_IN_FLIGHT:
                     pending.pop(0).result()
+                if progress is not None:
+                    progress(forwards, len(loader))
             for f in futures:
                 f.result()
         stream_s = time.perf_counter() - t_stream
@@ -393,3 +403,41 @@ def mul_eval_grid(
                           forwards=forwards, **spent,
                           score_s=time.perf_counter() - t_score)
     return [{"seed": int(s), **m} for s, m in zip(seeds, scored)]
+
+
+def mul_eval_grid_multihost(
+    step, model,
+    dataset, vocab: Vocabulary, dc: ScannetDatasetConfig,
+    corpus: Dict, organized: Dict,
+    seeds: Sequence[int],
+    batch_size: int,
+    **kwargs,
+) -> List[Dict]:
+    """``mul_eval_grid`` sharded by seed over the ranks of the process
+    group (``parallel/multihost.py``): each rank streams the grid of its
+    round-robin share of ``seeds`` on its own device, and the per-seed rows
+    are merged by one all-gather. Every rank returns the same full list in
+    ``seeds`` order, equal to a single-process run's, since a seed's whole
+    pipeline (its RNG schedule included) is local to one rank. Outside a
+    process group this is ``mul_eval_grid``.
+
+    The ranks first all-gather whether each finds a WordNet dictionary for
+    METEOR's synonym stage: if any lacks one, all score without the stage
+    (``wordnet_dir=""``), so that every seed is scored under one metric. The
+    decision travels as an argument, not through the environment. That
+    all-gather also forms the side group's connections while the ranks are
+    still in step; the row merge comes when each has finished its seeds."""
+    from spacap3d_tpu_torch.parallel.multihost import allgather_pyobj, process_shard
+
+    if kwargs.get("wordnet_dir") is None:
+        found = capeval.locate_wordnet_dir()
+        have = allgather_pyobj(found is not None)
+        kwargs["wordnet_dir"] = found if all(have) else ""
+    local_seeds = process_shard(list(seeds))
+    local_rows = (mul_eval_grid(step, model, dataset, vocab, dc, corpus, organized,
+                                local_seeds, batch_size, **kwargs) if local_seeds else [])
+    merged: Dict[int, Dict] = {}
+    for rank_rows in allgather_pyobj(local_rows):
+        for row in rank_rows:
+            merged[int(row["seed"])] = row
+    return [merged[int(s)] for s in seeds]

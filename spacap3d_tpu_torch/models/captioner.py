@@ -25,6 +25,10 @@ its relation head, and the eval path's greedy decode.
 * ``eval_decode_fused`` with a bf16 decode on CUDA tensors runs each FFN
   and the generator's argmax as one fused kernel (``ops/decode.py``), as
   the JAX package runs its Pallas kernels for a bf16 decode on a TPU.
+* Under tensor parallelism (``parallel/tp.py::shard_model``, which sets
+  ``tp_group``) the attention and FFN layers hold this rank's heads and
+  columns; the relation head and the attention dump gather every head,
+  and the decode sums its row-parallel products over the group.
 """
 from __future__ import annotations
 
@@ -42,6 +46,8 @@ from spacap3d_tpu_torch.models.core import (
     RefLayerNorm,
     dense,
     dropout,
+    gather_from_group,
+    reduce_from_group,
     ref_layer_norm,
     run_layers,
 )
@@ -222,9 +228,12 @@ class _DecodeWeights:
     held in f32, so every matmul multiplies the rounded operands with f32
     accumulation (the products of bf16 values are exact in f32). A fused
     decode also keeps bf16 copies of the FFN and generator weights in the
-    kernels' layout, built here, outside the step loop."""
+    kernels' layout, built here, outside the step loop. Under tensor
+    parallelism (``group``) the weights are this rank's slices, ``h`` its
+    heads, and ``row`` sums a row-parallel product over the group."""
 
-    def __init__(self, model: TransformerModel, cfg: ModelConfig, dd: torch.dtype):
+    def __init__(self, model: TransformerModel, cfg: ModelConfig, dd: torch.dtype,
+                 group=None):
         def rnd(t):
             return t.detach().to(dd).float()
 
@@ -251,7 +260,8 @@ class _DecodeWeights:
                 w.update({f"src{i}_b": rnd(src[i].bias) for i in range(4)})
             self.layers.append(w)
         lut = model.tgt_embed[0].lut.weight
-        self.dd = dd
+        self.dd, self.group = dd, group
+        self.h = model.decoder.layers[0].self_attn.h
         self.fused = decode_fused(cfg, dd, lut.device)
         if self.fused:
             for w, layer in zip(self.layers, model.decoder.layers):
@@ -267,8 +277,18 @@ class _DecodeWeights:
         self.pe = rnd(sinusoid_pe(cfg.max_des_len + 4, cfg.d_model, lut.device))
         self.sqrt_d = rnd(torch.tensor(math.sqrt(cfg.d_model), device=lut.device))
 
+    def row(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """x @ w^T + b for a row-parallel layer: the partial products summed
+        over the group before the bias."""
+        if self.group is None:
+            return dense(x, w, b)
+        return reduce_from_group(dense(x, w), self.group) + b
+
 
 class Captioner(nn.Module):
+    # the model group under tensor parallelism (parallel/tp.py), else None
+    tp_group = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
@@ -278,6 +298,10 @@ class Captioner(nn.Module):
             # relation head: the train forward only
             self.relation_proposal = nn.Sequential(
                 Dense(d, d), nn.ReLU(), Dense(d, d), nn.ReLU(), Dense(d, 9))
+
+    def all_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, heads, ...) of this rank's heads -> every head's."""
+        return x if self.tp_group is None else gather_from_group(x, self.tp_group, 1)
 
     # ------------------------------------------------------------ encoder
     def src_pos(self, ep: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
@@ -363,8 +387,8 @@ class Captioner(nn.Module):
             causal = torch.ones((1, t, t), dtype=torch.bool, device=feats.device).tril()
             self.decode_full(emb, obj, None, causal, attn_out=dec_attn)
         empty = feats.new_zeros((0,))
-        return (torch.stack(enc_attn) if enc_attn else empty,
-                torch.stack(dec_attn) if dec_attn else empty)
+        return (torch.stack([self.all_heads(a) for a in enc_attn]) if enc_attn else empty,
+                torch.stack([self.all_heads(a) for a in dec_attn]) if dec_attn else empty)
 
     def relation_head(self, attn: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
         """attn (B, h, K, K), value (B, h, K, dk) -> (B, K, K, 9). The
@@ -431,7 +455,7 @@ class Captioner(nn.Module):
                                      torch.where(good, target_d2[:, 0], 0.0).mean(), 0.0),
         }
         if cfg.check_relation and relation is not None:
-            new["relation_pred"] = self.relation_head(*relation)
+            new["relation_pred"] = self.relation_head(*map(self.all_heads, relation))
         return new
 
     # ------------------------------------------------------------- decode
@@ -439,9 +463,8 @@ class Captioner(nn.Module):
         """One decoder step for the newest token. x (R, 1, d) in dd; caches
         per layer (k, v) of shape (R, h, Lmax, dk) in dd, slot ``pos``
         written here. Returns the final-norm hidden (R, d) f32."""
-        cfg, dd = self.cfg, w.dd
-        h, d = cfg.num_heads, cfg.d_model
-        scale = math.sqrt(d // h)
+        cfg, dd, h = self.cfg, w.dd, w.h
+        scale = math.sqrt(cfg.d_model // cfg.num_heads)
 
         def norm(ln, x):
             return ref_layer_norm(x.float(), *ln).to(dd)
@@ -449,6 +472,7 @@ class Captioner(nn.Module):
         for li, lw in enumerate(w.layers):
             k_cache, v_cache = caches[li]
             qkv = dense(norm(lw["ln0"], x).float(), lw["qkv_w"], lw["qkv_b"])
+            d = qkv.shape[-1] // 3                  # this rank's heads' width
             q = split_heads(qkv[..., :d], h)
             k_cache[:, :, pos:pos + 1] = split_heads(qkv[..., d:2 * d], h).to(dd)
             v_cache[:, :, pos:pos + 1] = split_heads(qkv[..., 2 * d:], h).to(dd)
@@ -457,19 +481,20 @@ class Captioner(nn.Module):
             scores = torch.matmul(q.to(dd).float(), keys.transpose(-1, -2)) / scale
             probs = torch.softmax(scores, dim=-1)
             att = torch.matmul(probs.to(dd).float(), vals)
-            x = x + dense(merge_heads(att).to(dd).float(), lw["o_w"], lw["o_b"]).to(dd)
+            x = x + w.row(merge_heads(att).to(dd).float(), lw["o_w"], lw["o_b"]).to(dd)
             if not cfg.early_guide:
                 ck, cv = cross_kv[li]
                 q = split_heads(dense(norm(lw["ln1"], x).float(), lw["src0_w"], lw["src0_b"]), h)
                 scores = torch.matmul(q.to(dd).float(), ck.float().transpose(-1, -2)) / scale
                 att = torch.matmul(torch.softmax(scores, dim=-1).to(dd).float(), cv.float())
-                x = x + dense(merge_heads(att).to(dd).float(), lw["src3_w"], lw["src3_b"]).to(dd)
+                x = x + w.row(merge_heads(att).to(dd).float(), lw["src3_w"],
+                              lw["src3_b"]).to(dd)
             xn = norm(lw["ln2"], x)
             if w.fused:
                 x = x + ops.ffn(xn[:, 0], lw["ffn"])[:, None]
             else:
                 hid = torch.relu(dense(xn.float(), lw["w1"], lw["b1"])).to(dd)
-                x = x + dense(hid.float(), lw["w2"], lw["b2"]).to(dd)
+                x = x + w.row(hid.float(), lw["w2"], lw["b2"]).to(dd)
         return ref_layer_norm(x.float(), *w.final_ln)[:, 0]
 
     def start_decode(self, obj_token: torch.Tensor):
@@ -477,9 +502,10 @@ class Captioner(nn.Module):
         caches (early guide: the object token already at position 0), the
         late-guide cross K/V, and the position of the first caption token."""
         cfg = self.cfg
-        w = _DecodeWeights(self.model, cfg, getattr(torch, cfg.eval_decode_dtype))
+        w = _DecodeWeights(self.model, cfg, getattr(torch, cfg.eval_decode_dtype),
+                           self.tp_group)
         dd, r, dev = w.dd, obj_token.shape[0], obj_token.device
-        h, dk = cfg.num_heads, cfg.d_model // cfg.num_heads
+        h, dk = w.h, cfg.d_model // cfg.num_heads
         offset = 1 if cfg.early_guide else 0
         lmax = cfg.max_des_len + 2 + offset
         caches = [(torch.zeros((r, h, lmax, dk), dtype=dd, device=dev),

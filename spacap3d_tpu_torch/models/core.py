@@ -1,6 +1,11 @@
 """Layers shared by the port's modules: dense (1x1 conv / linear over the
 channel-last axis), batch norm, dropout and the captioner's layer norm.
 
+Two of them take part in the parallel runtimes (``parallel/``): a train-mode
+``BatchNorm`` whose ``group`` is set takes its statistics over the rows of
+every rank of that process group, and a ``Dense`` whose ``tp`` is set is a
+column- or row-parallel slice of a tensor-parallel layer.
+
 Parameters keep the reference PyTorch modules' shapes and names, so a
 reference state dict loads by name: Linear weights are (out, in), Conv1d
 (out, in, 1), Conv2d (out, in, 1, 1). The maths is channel-last, as in the
@@ -12,6 +17,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -55,12 +61,96 @@ class Dense(nn.Module):
                 limit = 1.0 / math.sqrt(self.in_dim)
                 self.bias.copy_((torch.rand(self.out_dim, generator=gen) * 2 - 1) * limit)
 
+    # tensor parallelism (parallel/tp.py::shard_model): None, or ("column",
+    # group) / ("row", group) for a slice of the output / input dimension
+    tp = None
+
     def matrix(self) -> torch.Tensor:
-        """The weight as an (out, in) matrix."""
-        return self.weight.reshape(self.out_dim, self.in_dim)
+        """The weight (this rank's slice under TP) as an (out, in) matrix."""
+        return self.weight.reshape(self.weight.shape[0], self.weight.shape[1])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.weight, self.bias)
+        if self.tp is None:
+            return dense(x, self.weight, self.bias)
+        kind, group = self.tp
+        if kind == "column":
+            return dense(copy_to_group(x, group), self.weight, self.bias)
+        y = reduce_from_group(dense(x, self.weight), group)
+        return y if self.bias is None else y + self.bias
+
+
+def active_group(group) -> Optional["dist.ProcessGroup"]:
+    """``group`` if it spans more than one rank, else None: over a group of
+    one the layers run their single-process arithmetic."""
+    if group is None or dist.get_world_size(group) == 1:
+        return None
+    return group
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's *f*: the identity forward, an all-reduce of the gradient
+    (each rank's slice of a column-parallel layer contributes to it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        dy = dy.contiguous().clone()
+        dist.all_reduce(dy, group=ctx.group)
+        return dy, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's *g*: an all-reduce forward (the partial products of a
+    row-parallel layer), the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """Concatenates the ranks' equal slices along ``dim`` (one all-reduce
+    of a zero tensor holding this rank's slice, which adds exact zeros);
+    the backward takes this rank's slice of the gradient, which every rank
+    computes alike downstream of the gather."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        rank, size = dist.get_rank(group), dist.get_world_size(group)
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * size
+        full = x.new_zeros(shape)
+        full.narrow(dim, rank * n, n).copy_(x)
+        dist.all_reduce(full, group=group)
+        ctx.dim, ctx.start, ctx.n = dim, rank * n, n
+        return full
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy.narrow(ctx.dim, ctx.start, ctx.n), None, None
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return _GatherFromGroup.apply(x, group, dim)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromGroup.apply(x, group)
 
 
 class _BatchNormTrain(torch.autograd.Function):
@@ -68,15 +158,36 @@ class _BatchNormTrain(torch.autograd.Function):
     ``_bn_train``: a two-pass mean and biased variance, ``rsqrt(var +
     eps)``, and the hand-written backward (one reduction pass over (dy,
     xhat), one elementwise pass for dx). Returns (y, mean, var); the
-    statistics carry no gradient (they feed only the running stats)."""
+    statistics carry no gradient (they feed only the running stats).
+
+    With a ``group`` (ranks holding equal row counts, as ``shard_batch``
+    gives them) the statistics are those of the rows of every rank, as
+    the JAX package's step takes them over a mesh-sharded batch: the
+    per-channel sums are all-reduced for the mean, then the sums of
+    squared deviations from that mean for the variance (the same two
+    passes). The backward all-reduces ``dbias`` and ``dweight`` before it
+    forms ``dx`` over the global row count, and returns this rank's own
+    ``dbias`` and ``dweight`` as the parameters' gradients: the train step
+    sums those over the ranks."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group=None):
         axes = tuple(range(x.dim() - 1))
-        mean = x.mean(axes)
-        var = torch.square(x - mean).mean(axes)
+        if group is None:
+            n = x.numel() // x.shape[-1]
+            mean = x.mean(axes)
+            var = torch.square(x - mean).mean(axes)
+        else:
+            n = x.numel() // x.shape[-1] * dist.get_world_size(group)
+            total = x.sum(axes)
+            dist.all_reduce(total, group=group)
+            mean = total / n
+            sq = torch.square(x - mean).sum(axes)
+            dist.all_reduce(sq, group=group)
+            var = sq / n
         rstd = torch.rsqrt(var + eps)
         ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.group, ctx.n = group, n
         ctx.mark_non_differentiable(mean, var)
         return (x - mean) * rstd * weight + bias, mean, var
 
@@ -84,12 +195,17 @@ class _BatchNormTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, rstd = ctx.saved_tensors
         axes = tuple(range(x.dim() - 1))
-        n = x.numel() // x.shape[-1]
+        n = ctx.n
         xhat = (x - mean) * rstd
         dbias = dy.sum(axes)
         dweight = (dy * xhat).sum(axes)
-        dx = (rstd * weight) * (dy - dbias / n - xhat * (dweight / n))
-        return dx, dweight, dbias, None
+        gbias, gweight = dbias, dweight
+        if ctx.group is not None:
+            both = torch.cat([dbias, dweight])
+            dist.all_reduce(both, group=ctx.group)
+            gbias, gweight = both.chunk(2)
+        dx = (rstd * weight) * (dy - gbias / n - xhat * (gweight / n))
+        return dx, dweight, dbias, None, None
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -103,14 +219,20 @@ class BatchNorm(nn.BatchNorm1d):
     running + m * batch`` at the ``momentum`` the caller passes (the train
     step's, which a solver schedules); train mode without one raises. The
     module's own ``momentum`` attribute is not read. ``F.batch_norm`` is
-    not used: cuDNN's statistics are not the JAX forward's."""
+    not used: cuDNN's statistics are not the JAX forward's. With ``group``
+    set (``set_batch_norm_group``; a group of more than one rank) train
+    mode takes the statistics over every rank's rows, so the running stats
+    move identically on every rank."""
+
+    group = None
 
     def forward(self, x: torch.Tensor, momentum: Optional[float] = None) -> torch.Tensor:
         if self.training:
             if momentum is None:
                 raise ValueError("train-mode batch norm needs the momentum of the step")
-            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
-            n = x.numel() // x.shape[-1]
+            group = active_group(self.group)
+            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps, group)
+            n = x.numel() // x.shape[-1] * (1 if group is None else dist.get_world_size(group))
             m = momentum
             with torch.no_grad():
                 self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
@@ -119,6 +241,14 @@ class BatchNorm(nn.BatchNorm1d):
             return y
         y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
         return y * self.weight + self.bias
+
+
+def set_batch_norm_group(model: nn.Module, group) -> None:
+    """Every ``BatchNorm`` of ``model`` takes its train-mode statistics
+    over ``group`` (None: this rank's rows only)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 def run_layers(layers: nn.Sequential, x: torch.Tensor,

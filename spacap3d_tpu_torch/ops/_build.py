@@ -6,10 +6,18 @@ into ``spacap3d_tpu_torch/_build/``, named by a hash of the sources and
 flags so that an edited source rebuilds. Nothing here runs at import time:
 the first CUDA call to a kernel wrapper builds and loads the library, and
 a failed build raises.
+
+Processes that start together (the ranks of a process group) build once:
+``library()`` checks for the library and compiles it under an exclusive
+``fcntl.flock`` on ``_build/build.lock``, so the first builds and the
+others wait, then load the same file. Objects, logs and the library are
+written under per-process names and renamed into place, so a reader never
+sees half of one.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -53,7 +61,7 @@ def _compile(lib_path: Path, sources) -> None:
     objs, procs = [], []
     for src in sources:
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        log = open(BUILD_DIR / f"{src.stem}.log", "w")
+        log = open(BUILD_DIR / f"{src.stem}.{tag}.log", "w")
         procs.append((src, log, subprocess.Popen(
             [nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(src), "-o", str(obj)],
             stdout=log, stderr=subprocess.STDOUT)))
@@ -64,9 +72,11 @@ def _compile(lib_path: Path, sources) -> None:
             failed.append(src.name)
         log.close()
     if failed:
-        logs = "\n".join((BUILD_DIR / f"{Path(f).stem}.log").read_text()[-4000:]
+        logs = "\n".join((BUILD_DIR / f"{Path(f).stem}.{tag}.log").read_text()[-4000:]
                          for f in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    for src in sources:
+        os.replace(BUILD_DIR / f"{src.stem}.{tag}.log", BUILD_DIR / f"{src.stem}.log")
     tmp = BUILD_DIR / f"{lib_path.name}.{tag}.tmp"
     subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
                     *map(str, objs)], check=True)
@@ -112,16 +122,31 @@ def ptxas_info() -> dict:
     return info
 
 
+def build() -> Path:
+    """The library's path, built first if it is missing: the check and the
+    compile run under an exclusive lock, so one of several processes that
+    start together builds and the others wait for it."""
+    sources = _sources()
+    lib_path = BUILD_DIR / f"libspacap_kernels-{_digest(sources)}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not lib_path.exists():
+                _compile(lib_path, sources)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return lib_path
+
+
 def library() -> ctypes.CDLL:
     """Builds (once per source hash) and loads the kernel library."""
     global _lib
     if _lib is not None:
         return _lib
-    sources = _sources()
-    lib_path = BUILD_DIR / f"libspacap_kernels-{_digest(sources)}.so"
-    if not lib_path.exists():
-        _compile(lib_path, sources)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = ctypes.CDLL(str(build()))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     i32p = ctypes.POINTER(i32)
     lib.spacap_fps.argtypes = [vp, i32, i32, i32, i32, i32, vp, vp, vp]

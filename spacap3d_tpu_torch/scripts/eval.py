@@ -9,9 +9,15 @@ CIDEr, BLEU-4, METEOR, ROUGE and mAP in ``{eval_tag}_results.csv``; the
 best-CIDEr seed reported, reference :446-478). Caption and detection share
 one forward a scene; ``--mul_eval`` streams the seed x scene grid
 (``eval/mul_eval.py``) unless ``--serial_mul_eval``. ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain versions) is the port's own; the
-JAX CLI's ``--multihost`` and ``--tp`` belong to the port's parallel
-runtimes and are not here.
+``cuda``; ``cpu`` runs the kernels' plain versions) is the port's own.
+
+``--multihost`` (``parallel/multihost.py``; the ``SPACAP_*`` variables as
+for the train CLI) shards the ``--mul_eval`` grid by seed over the ranks,
+each streaming its seeds on its own device; the rows are merged by
+all-gather. ``--tp k`` splits the captioner over exactly k ranks
+(``parallel/tp.py``), which all run the same grid: a TP run is not
+seed-sharded, as in the JAX package, and a world of other than k ranks is
+refused. Rank 0 alone prints rows and writes files.
 """
 import argparse
 import csv
@@ -76,6 +82,17 @@ def parse_args(argv=None):
                         "model_last.ckpt instead of --checkpoint")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group (SPACAP_COORDINATOR / SPACAP_NUM_PROCESSES / "
+                        "SPACAP_PROCESS_ID): --mul_eval seeds shard over the ranks, rows "
+                        "merge by all-gather")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: split the captioner over exactly this many "
+                        "ranks, which all evaluate every seed")
+    p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="process-group backend (default: nccl on cuda, gloo on cpu)")
+    p.add_argument("--dist_timeout", type=float, default=1800.0,
+                   help="seconds a rendezvous or a collective waits for the other ranks")
     args = p.parse_args(argv)
     # under --mul_eval the reference loop always runs caption and detection
     # (eval.py:446-478), so the single-eval aliases do not restrict it
@@ -94,6 +111,22 @@ def main(argv=None):
     ``--eval_visualize``)."""
     args = parse_args(argv)
 
+    from spacap3d_tpu_torch.parallel import multihost
+
+    rank, world = 0, 1
+    if args.multihost or args.tp > 1:
+        # before any other device use; the warm-up forms the groups'
+        # connections while the ranks are in step (the next collective, the
+        # grid's row merge, comes when each has finished its seeds)
+        rank, world = multihost.initialize_from_env(
+            device=args.device, backend=args.dist_backend, timeout_s=args.dist_timeout)
+        multihost.warmup_collectives(args.device)
+    if args.tp > 1 and world != args.tp:
+        raise SystemExit(f"--tp {args.tp} evaluates on a world of exactly {args.tp} ranks "
+                         f"(a TP grid is not seed-sharded); this one has {world}")
+    device = str(multihost.rank_device(args.device))
+    writes = rank == 0
+
     import numpy as np
 
     from spacap3d_tpu_torch.config import RunConfig
@@ -108,8 +141,9 @@ def main(argv=None):
         organize_annotations,
         prepare_corpus,
     )
-    from spacap3d_tpu_torch.eval.mul_eval import mul_eval_grid
+    from spacap3d_tpu_torch.eval.mul_eval import mul_eval_grid, mul_eval_grid_multihost
     from spacap3d_tpu_torch.models import SpaCapNet
+    from spacap3d_tpu_torch.parallel.tp import make_tp_mesh, shard_model
     from spacap3d_tpu_torch.train.step import make_attn_dump_step, make_eval_step
     from spacap3d_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -150,13 +184,15 @@ def main(argv=None):
     model = SpaCapNet(model_cfg, dc.mean_size_arr)
     model.load_state_dict(load_checkpoint(os.path.join(root, args.checkpoint))
                           ["model_state_dict"])
-    model = model.eval().to(args.device)
+    model = model.eval().to(device)
+    if args.tp > 1:
+        shard_model(model, make_tp_mesh(args.tp))
 
     grid_mode = args.mul_eval and not args.detection_only and not args.serial_mul_eval
     eff_batch = args.batch_size if grid_mode else min(args.batch_size, len(ds))
     # the grid reads no corners or centres on the host: the compact step
     # fetches fewer bytes a batch
-    eval_step = make_eval_step(model_cfg, device=args.device, compact=grid_mode)
+    eval_step = make_eval_step(model_cfg, device=device, compact=grid_mode)
 
     attn_dump_step = None
     if args.save_encoder_attn or args.save_decoder_attn:
@@ -166,7 +202,7 @@ def main(argv=None):
                 "the teacher-forced attention dump re-runs over those tokens, so dumped "
                 "weights past each caption's EOS differ from a normal-decode run "
                 "(captions and metrics do not).", RuntimeWarning)
-        attn_dump_step = make_attn_dump_step(device=args.device)
+        attn_dump_step = make_attn_dump_step(device=device)
 
     if args.eval_visualize:
         loader = DataLoader(ds, min(args.batch_size, len(ds)), shuffle=False, seed=args.seed,
@@ -175,10 +211,13 @@ def main(argv=None):
         eval_visualize(
             eval_step, model, ds, loader, vocab, organize_annotations(val_anns), dc, root,
             scans_dir=scans_dir if os.path.isdir(scans_dir) else None,
-            min_iou=args.min_iou, verbose=args.verbose, nodryrun=args.nodryrun,
-            device=args.device)
-        print(f"visualization dumps under {os.path.join(root, 'vis')}"
-              + ("" if args.nodryrun else " (dry run: pass --nodryrun to write)"))
+            min_iou=args.min_iou, verbose=args.verbose and writes,
+            nodryrun=args.nodryrun and writes, device=device)
+        if writes:
+            print(f"visualization dumps under {os.path.join(root, 'vis')}"
+                  + ("" if args.nodryrun else " (dry run: pass --nodryrun to write)"))
+        if world > 1:
+            multihost.shutdown()
         return None
 
     seeds = list(range(args.num_seeds)) if args.mul_eval else [args.seed]
@@ -190,39 +229,52 @@ def main(argv=None):
                 corpus = json.load(f)
         else:
             corpus = prepare_corpus(val_anns)
-            tmp = corpus_cache + ".tmp"
-            with open(tmp, "w") as f:
-                json.dump(corpus, f, indent=4)
-            os.replace(tmp, corpus_cache)
-        rows = mul_eval_grid(
+            if writes:
+                # a rank that finds the file must never read half of it
+                tmp = corpus_cache + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump(corpus, f, indent=4)
+                os.replace(tmp, corpus_cache)
+        grid_fn = mul_eval_grid_multihost if world > 1 and args.tp == 1 else mul_eval_grid
+        rows = grid_fn(
             eval_step, model, ds, vocab, dc, corpus, organize_annotations(val_anns), seeds,
             eff_batch, min_iou=args.min_iou, also_detection=not args.no_detection_eval,
-            num_workers=args.num_workers, device=args.device)
-        for row in rows:
-            print(json.dumps(row))
+            num_workers=args.num_workers, device=device,
+            progress=(lambda i, n: print(f"\rgrid batch {i}/{n}", end="", flush=True))
+            if writes else None)
+        if writes:
+            print()
+            for row in rows:
+                print(json.dumps(row))
         seeds = []
     for seed in seeds:
         loader = DataLoader(ds, eff_batch, shuffle=False, seed=seed,
                             num_workers=args.num_workers)
         if args.detection_only:
             det = eval_detection(eval_step, model, loader, dc, ap_iou=args.min_iou,
-                                 device=args.device)
+                                 device=device)
             metrics = {"mAP@0.5": det["mAP"], "AR@0.5": det["AR"]}
         else:
             metrics, _ = eval_cap(
                 eval_step, model, ds, loader, vocab, dc, val_anns,
                 min_iou=args.min_iou, also_detection=not args.no_detection_eval,
-                corpus_cache=os.path.join(root, f"corpus_{phase}.json"),
-                pred_path=os.path.join(root, f"pred_{phase}_{args.eval_tag}_{seed}.json"),
+                corpus_cache=os.path.join(root, f"corpus_{phase}.json") if writes else None,
+                pred_path=os.path.join(root, f"pred_{phase}_{args.eval_tag}_{seed}.json")
+                if writes else None,
                 attn_dump_step=attn_dump_step, save_proposal=args.save_proposal,
                 dump_dir=os.path.join(root, f"dumps_{args.eval_tag}")
-                if (attn_dump_step or args.save_proposal) else None,
-                device=args.device)
+                if (attn_dump_step or args.save_proposal) and writes else None,
+                device=device)
         row = {"seed": seed, **{k: v for k, v in metrics.items()
                                 if isinstance(v, (int, float))}}
         rows.append(row)
-        print(json.dumps(row))
+        if writes:
+            print(json.dumps(row))
 
+    if world > 1:
+        multihost.shutdown()
+    if not writes:
+        return rows
     with open(os.path.join(root, f"{args.eval_tag}_results.csv"), "w", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=sorted(rows[0].keys()))
         writer.writeheader()

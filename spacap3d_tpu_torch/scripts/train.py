@@ -4,9 +4,18 @@
 
 The reference's argparse surface (reference scripts/train.py:352-398) flag
 for flag, so reference commands map one to one, plus ``--device``
-(default ``cuda``; ``cpu`` runs the kernels' plain versions). The JAX
-CLI's ``--multihost`` and ``--tp`` belong to the port's parallel runtimes
-and are not here.
+(default ``cuda``; ``cpu`` runs the kernels' plain versions) and the JAX
+CLI's ``--multihost`` and ``--tp``:
+
+    SPACAP_COORDINATOR=host:port SPACAP_NUM_PROCESSES=N SPACAP_PROCESS_ID=i \
+        python -m spacap3d_tpu_torch.scripts.train --multihost [--tp k] ...
+
+starts rank i of N (``parallel/multihost.py``; NCCL on CUDA with one rank
+a card, gloo on the CPU or with ``--dist_backend gloo``). ``--batch_size``
+stays the global batch, which the data ranks must divide; each loads its
+row-block. ``--tp k`` splits the captioner over model groups of k ranks
+(``parallel/tp.py``) on a world of d * k ranks. Rank 0 alone writes the
+run directory, whose stamp every rank takes from rank 0.
 
 Data layout expected under --data_root:
     <root>/ScanRefer_filtered_train.json / _val.json   (or nr3d_*.json)
@@ -76,6 +85,19 @@ def parse_args(argv=None):
                    help="'tiny' shrinks the trunk/captioner for smoke tests")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group (SPACAP_COORDINATOR / SPACAP_NUM_PROCESSES / "
+                        "SPACAP_PROCESS_ID): each rank loads its row-block of every global "
+                        "batch and the train step reduces over the ranks")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: split the captioner's attention and FFN "
+                        "layers over model groups of this many ranks (the world must be "
+                        "d * tp ranks); 1 = data parallelism only")
+    p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="process-group backend (default: nccl on cuda, gloo on cpu); gloo "
+                        "for ranks that share one card")
+    p.add_argument("--dist_timeout", type=float, default=1800.0,
+                   help="seconds a rendezvous or a collective waits for the other ranks")
     return p.parse_args(argv)
 
 
@@ -181,12 +203,37 @@ def main(argv=None):
     hold the run's telemetry."""
     args = parse_args(argv)
 
+    from spacap3d_tpu_torch.parallel import multihost
+
+    rank, world = 0, 1
+    if args.multihost or args.tp > 1:
+        # before any other device use: the rank's card becomes current
+        rank, world = multihost.initialize_from_env(
+            device=args.device, backend=args.dist_backend, timeout_s=args.dist_timeout)
+        multihost.warmup_collectives(args.device)
+    if world % args.tp:
+        raise SystemExit(f"--tp {args.tp} needs a world of d * {args.tp} ranks (launch "
+                         f"with --multihost and SPACAP_NUM_PROCESSES); this one has {world}")
+    data_size = world // args.tp
+    if args.batch_size % data_size:
+        raise SystemExit(f"--multihost: global batch {args.batch_size} must divide over "
+                         f"{data_size} data ranks")
+    device = str(multihost.rank_device(args.device))
+
     from spacap3d_tpu_torch.data.dataset import ScanReferDataset, SceneStore
     from spacap3d_tpu_torch.data.loader import DataLoader
     from spacap3d_tpu_torch.data.scannet_config import ScannetDatasetConfig
     from spacap3d_tpu_torch.data.vocabulary import load_or_build_vocabulary
     from spacap3d_tpu_torch.models import init_spacap
+    from spacap3d_tpu_torch.parallel.mesh import make_mesh
+    from spacap3d_tpu_torch.parallel.tp import make_tp_mesh
     from spacap3d_tpu_torch.train.solver import Solver
+
+    tp_mesh = make_tp_mesh(args.tp) if args.tp > 1 else None
+    group = None if tp_mesh is not None else make_mesh()
+    data_rank = rank // args.tp
+    if world > 1 and rank == 0:
+        print(f"process group: {world} ranks ({data_size} data x {args.tp} model)")
 
     train_anns, val_anns = load_annotations(args)
     train_scenes = sorted({a["scene_id"] for a in train_anns})
@@ -231,7 +278,8 @@ def main(argv=None):
 
     batch = args.batch_size
     train_loader = DataLoader(train_ds, batch, shuffle=True, seed=args.seed,
-                              num_workers=args.num_workers)
+                              num_workers=args.num_workers, process_index=data_rank,
+                              process_count=data_size)
     val_loader = DataLoader(val_ds, min(batch, len(val_ds)), shuffle=False,
                             num_workers=args.num_workers)
     train_eval_loader = None
@@ -239,31 +287,40 @@ def main(argv=None):
         train_eval_loader = DataLoader(train_eval_ds, min(batch, len(train_eval_ds)),
                                        shuffle=False, num_workers=args.num_workers)
 
-    model = init_spacap(run_cfg.model, dc.mean_size_arr, seed=args.seed, device=args.device)
+    model = init_spacap(run_cfg.model, dc.mean_size_arr, seed=args.seed, device=device)
     if args.pretrained_votenet:
         n = mount_detector(model, args.pretrained_votenet)
-        print(f"mounted the detector from {args.pretrained_votenet}: {n} tensors")
+        if rank == 0:
+            print(f"mounted the detector from {args.pretrained_votenet}: {n} tensors")
+    num_params = int(sum(p.numel() for p in model.parameters()))
+    multihost.replicate_global(model)
 
     stamp = args.use_checkpoint or (
         datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         + (f"_{args.tag.upper()}" if args.tag else ""))
+    # every rank takes rank 0's stamp (the ranks' clocks differ)
+    stamp = multihost.allgather_pyobj(stamp)[0]
     solver = Solver(
         run_cfg, model, train_loader, val_loader, train_ds, val_ds, vocab, dc,
-        eval_val_anns_full, stamp, device=args.device,
+        eval_val_anns_full, stamp, device=device,
         eval_on_train=args.eval_on_train, train_eval_loader=train_eval_loader,
         train_eval_dataset=train_eval_ds, train_corpus_annotations=train_anns,
+        group=group, tp_mesh=tp_mesh,
     )
     if args.use_checkpoint:
         solver.restore(os.path.join(args.output_dir, args.use_checkpoint, "model_last.ckpt"))
 
-    run_cfg.save(os.path.join(solver.root, "config.json"))
+    if rank == 0:
+        run_cfg.save(os.path.join(solver.root, "config.json"))
     info = dict(vars(args))
     info.update(num_train=len(train_ds), num_eval_val=len(val_ds),
                 num_train_scenes=len(train_scenes), num_eval_val_scenes=len(val_scenes),
-                num_params=int(sum(p.numel() for p in model.parameters())))
+                num_params=num_params, world=world)
     solver.logger.write_json("info.json", info)
 
     solver(args.epoch, args.verbose)
+    if world > 1:
+        multihost.shutdown()
     return solver
 
 

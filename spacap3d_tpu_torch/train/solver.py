@@ -20,9 +20,22 @@ Dropout masks come from a generator on the model's device seeded from
 run draws the masks an uninterrupted one would. They are not the JAX
 package's masks: the two frameworks' random streams differ.
 
-The JAX solver's multi-process and tensor-parallel branches (its
-``_NullLogger``, process index and count, the TP layout on restore) belong
-to the port's parallel runtimes and are not here.
+Data parallelism (``group``, ``parallel/``): every rank runs the same loop
+on its row-block of each global batch (its loader's process slicing) with
+the train step's group path, so the parameters stay equal on every rank.
+Each rank validates redundantly on its own device over the whole val
+loader, so the best-checkpoint decisions agree; rank 0 alone writes logs,
+checkpoints, ``best.txt`` and the corpus and prediction files (the others
+log to a ``_NullLogger``). Dropout generators are seeded from (seed,
+global iteration, data rank).
+
+Tensor parallelism (``tp_mesh``, ``parallel/tp.py``): the captioner is
+cut to this rank's slices before the optimizer is built, the data group
+of the mesh takes the part of ``group``, and a checkpoint holds whole
+tensors: every rank gathers the slices (a collective) before rank 0
+writes, and ``restore`` cuts them again. The JAX package runs TP in one
+process and refuses it across processes; torch has no one-process
+multi-device mesh, so here TP always spans processes.
 """
 from __future__ import annotations
 
@@ -35,6 +48,9 @@ import torch
 
 from spacap3d_tpu_torch.config import RunConfig
 from spacap3d_tpu_torch.eval.eval_helper import eval_cap, eval_device
+from spacap3d_tpu_torch.parallel import tp as tp_mod
+from spacap3d_tpu_torch.parallel.mesh import group_rank_size
+from spacap3d_tpu_torch.parallel.multihost import process_count, process_index
 from spacap3d_tpu_torch.train.step import make_eval_step, make_optimizer, make_train_step
 from spacap3d_tpu_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint
 from spacap3d_tpu_torch.utils.logging import RunLogger, decode_eta
@@ -45,15 +61,51 @@ CAPTION_METRICS = ("bleu-1", "bleu-2", "bleu-3", "bleu-4", "cider", "rouge", "me
 SUM_METRICS = ("bleu-4", "cider", "rouge", "meteor")
 
 
+def dropout_generator(device, seed: int, global_iter: int, data_rank: int = 0
+                      ) -> torch.Generator:
+    """The dropout masks' generator of a step, seeded from (seed, global
+    iteration, data rank): a resumed run draws the masks of an
+    uninterrupted one, each data rank its own, and data rank 0 those of a
+    single process."""
+    gen = torch.Generator(device=device)
+    s = (seed * 1_000_003 + global_iter) % (2 ** 63)
+    gen.manual_seed((s * 1009 + data_rank) % (2 ** 63) if data_rank else s)
+    return gen
+
+
 def synchronize(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
+class _NullLogger:
+    """The logger of ranks other than 0: rank 0 owns log.txt,
+    all_scalars.json and best.txt; the others run the same loop silently
+    (their metrics are the same global values)."""
+
+    def log(self, *a, **k):
+        pass
+
+    def scalar(self, *a, **k):
+        pass
+
+    def write_json(self, *a, **k):
+        pass
+
+    def dump_scalars(self, *a, **k):
+        pass
+
+    def close(self, *a, **k):
+        pass
+
+
 class Solver:
-    """``model`` must lie on ``device``. ``timing`` holds every sampled
-    step time, every fetch time and every validation's wall time, in
-    seconds (``step``, ``fetch``, ``val``)."""
+    """``model`` must lie on ``device``, with the same weights on every rank
+    (``multihost.replicate_global``). ``timing`` holds every sampled step
+    time, every fetch time and every validation's wall time, in seconds
+    (``step``, ``fetch``, ``val``). ``group``: the data-parallel process
+    group; ``tp_mesh``: a tensor-parallel split (its data group then
+    replaces ``group``)."""
 
     def __init__(
         self,
@@ -73,8 +125,16 @@ class Solver:
         train_eval_loader=None,
         train_eval_dataset=None,
         train_corpus_annotations=None,
+        group=None,
+        tp_mesh: Optional[tp_mod.TPMesh] = None,
     ):
         self.device = eval_device(model, device)
+        self.tp_mesh = tp_mesh
+        self.group = tp_mesh.data if tp_mesh is not None else group
+        self.process_index, self.process_count = process_index(), process_count()
+        self.data_rank = group_rank_size(self.group)[0]
+        if tp_mesh is not None:
+            tp_mod.shard_model(model, tp_mesh)
         self.cfg = run_cfg
         self.tc = run_cfg.train
         self.mc = run_cfg.model
@@ -95,11 +155,11 @@ class Solver:
         self.train_corpus_annotations = train_corpus_annotations
 
         self.root = os.path.join(run_cfg.output_dir, stamp)
-        self.logger = RunLogger(self.root)
+        self.logger = RunLogger(self.root) if self.process_index == 0 else _NullLogger()
         self.ckpt = AsyncCheckpointer()
         self.optimizer, self.scheduler = make_optimizer(model, self.tc, len(train_loader))
         self.train_step = make_train_step(self.mc, self.tc, self.optimizer, self.device,
-                                          self.scheduler)
+                                          self.scheduler, group=self.group)
         self.eval_step = make_eval_step(self.mc, self.device)
 
         self.best = {"epoch": 0, **{k: -float("inf") for k in CAPTION_METRICS},
@@ -115,16 +175,21 @@ class Solver:
         return max(m, BN_MOMENTUM_MAX)
 
     def dropout_generator(self, global_iter: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed((self.tc.seed * 1_000_003 + global_iter) % (2 ** 63))
-        return gen
+        return dropout_generator(self.device, self.tc.seed, global_iter, self.data_rank)
 
     def _save(self, name: str, epoch: int):
+        model_sd, opt_sd = self.model.state_dict(), self.optimizer.state_dict()
+        if self.tp_mesh is not None:
+            # a collective: every rank gathers before rank 0 writes
+            model_sd = tp_mod.gather_state_dict(model_sd, self.tp_mesh, self.model.tp_specs)
+            opt_sd = tp_mod.gather_optimizer_state(self.optimizer, self.model, self.tp_mesh)
+        if self.process_index != 0:
+            return
         payload = {
             "epoch": epoch,
             "iter": self.global_iter,
-            "model_state_dict": self.model.state_dict(),
-            "optimizer_state_dict": self.optimizer.state_dict(),
+            "model_state_dict": model_sd,
+            "optimizer_state_dict": opt_sd,
             "scheduler_state_dict": (None if self.scheduler is None
                                      else self.scheduler.state_dict()),
             "best": dict(self.best),
@@ -133,8 +198,13 @@ class Solver:
 
     def restore(self, path: str):
         payload = load_checkpoint(path)
-        self.model.load_state_dict(payload["model_state_dict"])
-        self.optimizer.load_state_dict(payload["optimizer_state_dict"])
+        model_sd, opt_sd = payload["model_state_dict"], payload["optimizer_state_dict"]
+        if self.tp_mesh is not None:
+            model_sd = tp_mod.shard_state_dict(model_sd, self.tp_mesh, self.model.tp_specs)
+            opt_sd = tp_mod.shard_optimizer_state(opt_sd, self.optimizer, self.model,
+                                                  self.tp_mesh)
+        self.model.load_state_dict(model_sd)
+        self.optimizer.load_state_dict(opt_sd)
         if self.scheduler is not None:
             self.scheduler.load_state_dict(payload["scheduler_state_dict"])
         # native types for json.dump in dump_scalars and best.json
@@ -263,8 +333,8 @@ class Solver:
             train_metrics, _ = eval_cap(
                 self.eval_step, self.model, self.train_eval_dataset, self.train_eval_loader,
                 self.vocab, self.dc, self.train_corpus_annotations,
-                corpus_cache=os.path.join(self.root, "corpus_train.json"),
-                pred_path=os.path.join(self.root, "pred_train.json"),
+                corpus_cache=self._own_file("corpus_train.json"),
+                pred_path=self._own_file("pred_train.json"),
                 meteor_jar=self.meteor_jar, device=self.device)
             for k, v in train_metrics.items():
                 if isinstance(v, (int, float)):
@@ -273,8 +343,8 @@ class Solver:
         metrics, _ = eval_cap(
             self.eval_step, self.model, self.val_dataset, self.val_loader, self.vocab, self.dc,
             self.corpus_annotations,
-            corpus_cache=os.path.join(self.root, "corpus_val.json"),
-            pred_path=os.path.join(self.root, "pred_val.json"),
+            corpus_cache=self._own_file("corpus_val.json"),
+            pred_path=self._own_file("pred_val.json"),
             meteor_jar=self.meteor_jar, device=self.device)
         for k, v in metrics.items():
             if isinstance(v, (int, float)):
@@ -291,7 +361,15 @@ class Solver:
             self._save("model.ckpt", epoch)
         self.timing["val"].append(time.perf_counter() - t0)
 
+    def _own_file(self, name: str) -> Optional[str]:
+        """``name`` under the run directory on rank 0, which owns the files;
+        None elsewhere."""
+        return os.path.join(self.root, name) if self.process_index == 0 else None
+
     def _finish(self):
+        if self.process_index != 0:
+            self.logger.close()
+            return
         with open(os.path.join(self.root, "best.txt"), "w") as f:
             for k, v in self.best.items():
                 f.write(f"{k}: {v}\n")

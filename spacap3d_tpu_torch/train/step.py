@@ -6,15 +6,27 @@ Adam with torch's coupled weight decay (the JAX chain
 update. Eval: the eval forward (with greedy decode) plus the detection
 side-outputs the eval harness reads. The attention dump: the detector in
 eval mode, then the teacher-forced captioner over the greedy tokens.
+
+Data parallelism (``group``): the train step on each rank of a process
+group computes what the JAX package's step computes on one mesh-sharded
+global batch. Each rank holds a row-block of the batch; batch norm takes
+its statistics over every rank's rows and the losses divide by the global
+counts (``models/core.py``, ``train/losses.py``), so this rank's loss is
+its share of the global loss. After the backward one all-reduce sums the
+gradients over the group, and the same Adam update on every rank keeps
+the parameters equal. The metrics are the global batch's.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from spacap3d_tpu_torch.config import ModelConfig, TrainConfig
 from spacap3d_tpu_torch.device import resolve_device
+from spacap3d_tpu_torch.models.core import set_batch_norm_group
+from spacap3d_tpu_torch.parallel.tp import average_replicated_gradients
 from spacap3d_tpu_torch.ops.nn_distance import nn_distance
 from spacap3d_tpu_torch.train.losses import NEAR_THRESHOLD, get_scene_cap_loss
 
@@ -26,6 +38,9 @@ METRIC_KEYS = (
     "cap_acc", "obj_acc", "pos_ratio", "neg_ratio", "pred_ious",
     "x_loss", "y_loss", "z_loss", "x_acc", "y_acc", "z_acc",
 )
+# metrics that are means over each rank's rows (the captioner's pred_ious):
+# under data parallelism the ranks' values are averaged, the others summed
+MEAN_METRIC_KEYS = ("pred_ious",)
 # the batch keys the train step reads
 TRAIN_KEYS = (
     "point_clouds", "vote_label", "vote_label_mask", "center_label",
@@ -159,8 +174,31 @@ def make_optimizer(model: torch.nn.Module, tc: TrainConfig, steps_per_epoch: int
     return opt, sched
 
 
+def allreduce_gradients(model: torch.nn.Module, group) -> None:
+    """Sums every ``.grad`` of ``model`` over ``group``, in one all-reduce
+    of the flattened gradients."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Each rank's shares of the metrics -> the global batch's metrics, in
+    one all-reduce: summed, ``MEAN_METRIC_KEYS`` averaged."""
+    keys = list(metrics)
+    both = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(both, group=group)
+    world = dist.get_world_size(group)
+    return {k: both[i] / world if k in MEAN_METRIC_KEYS else both[i]
+            for i, k in enumerate(keys)}
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Optimizer,
-                    device="cuda", scheduler=None) -> Callable:
+                    device="cuda", scheduler=None, group=None) -> Callable:
     """Returns step(model, batch, gen=None, bn_momentum=0.1, marks=None) ->
     metrics, a dict of 0-dim tensors on ``device`` (``METRIC_KEYS``) taken
     in the forward, before the update. A step sets ``model.train()``, runs
@@ -170,7 +208,14 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Op
     until the next step. ``batch`` holds ``TRAIN_KEYS`` as numpy arrays or
     tensors. On a CUDA device a list ``marks`` receives five timing events,
     recorded before the forward and after the forward, the losses, the
-    backward and the optimizer step: the step's split into those parts."""
+    backward and the optimizer step: the step's split into those parts.
+
+    ``group``: a process group whose ranks each pass their row-block of one
+    global batch (module docstring); the gradients are summed over it
+    before the update, and the metrics are the global batch's. Under tensor
+    parallelism (a model cut by ``parallel/tp.py::shard_model``) it is the
+    data group, and the gradients of the parameters every rank of a model
+    group holds whole are first averaged over that group."""
     dev = resolve_device(device)
 
     def mark(marks):
@@ -183,21 +228,31 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Op
              ) -> Dict[str, torch.Tensor]:
         batch = to_device_batch({k: batch[k] for k in TRAIN_KEYS}, dev)
         model.train()
-        mark(marks)
-        ep = model.train_forward(batch, gen, bn_momentum)
-        mark(marks)
-        ep = get_scene_cap_loss(
-            ep, model.mean_size_arr, cfg.num_heading_bin, cfg.num_size_cluster,
-            detection=not tc.no_detection, caption=not tc.no_caption,
-            use_relation=tc.use_relation and cfg.check_relation)
-        mark(marks)
-        model.zero_grad(set_to_none=True)
-        ep["loss"].backward()
+        set_batch_norm_group(model, group)
+        try:
+            mark(marks)
+            ep = model.train_forward(batch, gen, bn_momentum)
+            mark(marks)
+            ep = get_scene_cap_loss(
+                ep, model.mean_size_arr, cfg.num_heading_bin, cfg.num_size_cluster,
+                detection=not tc.no_detection, caption=not tc.no_caption,
+                use_relation=tc.use_relation and cfg.check_relation, group=group)
+            mark(marks)
+            model.zero_grad(set_to_none=True)
+            ep["loss"].backward()
+        finally:
+            set_batch_norm_group(model, None)
+        tp_mesh = getattr(model, "tp_mesh", None)
+        if tp_mesh is not None:
+            average_replicated_gradients(model, tp_mesh)
+        if group is not None:
+            allreduce_gradients(model, group)
         mark(marks)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
         mark(marks)
-        return {k: ep[k].detach() for k in METRIC_KEYS if k in ep}
+        metrics = {k: ep[k].detach() for k in METRIC_KEYS if k in ep}
+        return metrics if group is None else global_metrics(metrics, group)
 
     return step

@@ -1,6 +1,6 @@
 """The port's command lines on the CPU (``--device cpu``): the flows of
 tests/test_cli.py for ``spacap3d_tpu_torch.scripts.train`` and ``.eval``
-(the JAX CLIs' ``--tp`` and ``--multihost`` are not ported), resume and
+(their ``--multihost`` and ``--tp`` in tests/test_torch_multihost.py), resume and
 detector mounting, the overfit gate's plumbing, and the slice as a whole:
 a port checkpoint, converted to the JAX package's format beside the same
 config.json, evaluated by the JAX package's ``scripts/eval.py`` and by the

@@ -400,5 +400,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                 bad[rel] = hits
     assert not bad, bad
     for rel in ("scripts/train.py", "scripts/eval.py", "scripts/overfit_gate.py",
-                "scripts/profile_step.py", "train/solver.py", "utils/checkpoint.py"):
+                "scripts/profile_step.py", "train/solver.py", "utils/checkpoint.py",
+                "parallel/multihost.py", "parallel/mesh.py", "parallel/tp.py",
+                "parallel/mp_dryrun.py"):
         assert rel in checked, rel
