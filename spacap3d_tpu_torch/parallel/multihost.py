@@ -170,18 +170,20 @@ def process_shard(items: Sequence, rank: Optional[int] = None,
 
 
 def warmup_collectives(device="cuda") -> None:
-    """One tiny all-reduce on this rank's device right after init, and a
-    barrier on the side group: NCCL forms its communicator at the first
-    collective, so every rank forms it now, seconds apart, and not at a
-    first train step that ranks reach far apart. A no-op outside a group."""
+    """One tiny all-reduce on this rank's device right after init, and an
+    all-gather of the ranks over the side group: NCCL forms its
+    communicator at the first collective, so every rank forms it now,
+    seconds apart, and not at a first train step (or a grid's row merge)
+    that ranks reach far apart. A no-op outside a group."""
     if not dist.is_initialized():
         return
     x = torch.ones(1, device=rank_device(device))
     dist.all_reduce(x)
-    if int(x.item()) != dist.get_world_size():
-        raise RuntimeError(f"warm-up all-reduce gave {x.item()} over "
-                           f"{dist.get_world_size()} ranks")
-    dist.barrier(group=_side_group)
+    world = dist.get_world_size()
+    ranks = allgather_pyobj(dist.get_rank())
+    if int(x.item()) != world or ranks != list(range(world)):
+        raise RuntimeError(f"warm-up over {world} ranks: all-reduce {x.item()}, "
+                           f"all-gather {ranks}")
 
 
 def allgather_bytes(payload: bytes) -> List[bytes]:

@@ -48,7 +48,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from spacap3d_tpu_torch.models.core import Dense
+from spacap3d_tpu_torch.models.core import Dense, gather_from_group
 from spacap3d_tpu_torch.models.captioner import Captioner, MultiHeadedAttention
 
 _ATTN = re.compile(r"^caption\.model\.(encoder|decoder)\.layers\.\d+\.(self_attn|src_attn)"
@@ -188,22 +188,12 @@ def shard_state_dict(state: Mapping[str, torch.Tensor], mesh: TPMesh,
             for k, v in state.items()}
 
 
-def _gather(t: torch.Tensor, dim: int, mesh: TPMesh) -> torch.Tensor:
-    n = t.shape[dim]
-    shape = list(t.shape)
-    shape[dim] = n * mesh.tp
-    full = t.new_zeros(shape)
-    full.narrow(dim, mesh.model_rank * n, n).copy_(t)
-    dist.all_reduce(full, group=mesh.model)
-    return full
-
-
 def gather_state_dict(state: Mapping[str, torch.Tensor], mesh: TPMesh,
                       specs: Mapping[str, Optional[int]]) -> Dict[str, torch.Tensor]:
     """This rank's slices -> whole tensors, equal on every rank of the model
     group (a collective: every rank of the group must call it)."""
     with torch.no_grad():
-        return {k: v if specs.get(k) is None else _gather(v.detach(), specs[k], mesh)
+        return {k: v if specs.get(k) is None else gather_from_group(v, mesh.model, specs[k])
                 for k, v in state.items()}
 
 
@@ -229,7 +219,7 @@ def gather_optimizer_state(optimizer: torch.optim.Optimizer, model: nn.Module,
     with torch.no_grad():
         return _map_moments(optimizer.state_dict(), _optimizer_names(optimizer, model),
                             lambda v, n: v if specs.get(n) is None else
-                            _gather(v, specs[n], mesh))
+                            gather_from_group(v, mesh.model, specs[n]))
 
 
 def shard_optimizer_state(osd: Dict, optimizer: torch.optim.Optimizer, model: nn.Module,
