@@ -173,9 +173,6 @@ PARALLEL_P1_STEPS, PARALLEL_P1_RTOL = 3, 1e-6
 PARALLEL_RTOL, PARALLEL_ATOL = 1e-5, TRAIN_LOSS_ATOL
 PARALLEL_OBJ_ATOL = 1e-5
 PARALLEL_GRID_SCENES, PARALLEL_GRID_SEEDS = 16, 4
-PARALLEL_P1_BACKEND = "nccl"
-PARALLEL_CLI_ARCH = ["--arch_preset", "full"]
-PARALLEL_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
 # the kernels whose device time the forward's profile reports, by kernel name
 PROFILED = {"fps": "fps_kernel", "ball_query": "ball_query_kernel",
             "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel"}
@@ -1779,10 +1776,11 @@ def metric_misses(got, want, rtol, atol):
 
 
 def check_launches(what, per_call):
-    bad = [c for c in per_call if c != PARALLEL_WANT]
+    """Every train step and forward of a rank launches as one of the CLIs'."""
+    bad = [c for c in per_call if c != CLI_WANT]
     if bad or not per_call:
         raise AssertionError(f"{what}: {len(bad)} of {len(per_call)} calls launched other "
-                             f"than {PARALLEL_WANT}: {bad[:3]}")
+                             f"than {CLI_WANT}: {bad[:3]}")
 
 
 def parallel_shared_card(out, cfg, smi, launches):
@@ -1790,14 +1788,14 @@ def parallel_shared_card(out, cfg, smi, launches):
     and NCCL over a world of one against the plain steps."""
     refuse_nccl(os.path.join(out, "p0"))
     # P1: NCCL, a world of one
-    p1 = dryrun(os.path.join(out, "p1"), 1, PARALLEL_P1_BACKEND, cfg, "--legs", "dp",
+    p1 = dryrun(os.path.join(out, "p1"), 1, "nccl", cfg, "--legs", "dp",
                 "--global_batch", B, "--steps", PARALLEL_P1_STEPS, "--dropout",
                 cfg.transformer_dropout, "--plain", "--deterministic")[0]["dp"]
     misses = [metric_misses(g["metrics"], w["metrics"], PARALLEL_P1_RTOL, 0.0)
               for g, w in zip(p1["steps"], p1["plain_steps"])]
     check_launches("P1 steps", [s["launches"] for s in p1["steps"]])
     launches["P1_nccl_step"] = [s["launches"] for s in p1["steps"]]
-    log("parallel", leg="P1", backend=PARALLEL_P1_BACKEND, world=1, steps=PARALLEL_P1_STEPS,
+    log("parallel", leg="P1", backend="nccl", world=1, steps=PARALLEL_P1_STEPS,
         dropout=cfg.transformer_dropout, max_metric_rel=max(p1["plain_rel"]),
         bit_equal=p1["plain_bit_equal"], max_param_abs_diff=p1["plain_param_max_abs"],
         step_ms=[s["ms"] for s in p1["steps"]],
@@ -1839,9 +1837,11 @@ def phase_parallel(smi, ranks=2, backend="gloo"):
     and forward of P1-P4 launches FPS 2, ball query 5 and the decode
     kernels 0 times on each rank. Returns those launches by leg.
 
-    ``python3 chip_smoke.py --ranks N`` runs P2-P5 alone over N ranks, one
-    card a rank over NCCL (TP then splits the world into N / 2 data x 2
-    model ranks); P0 and P1 belong to the shared card."""
+    ``python3 chip_smoke.py --ranks N``, on a machine of N cards, runs
+    P2-P5 alone over N ranks, one card a rank over NCCL (TP then splits the
+    world into N / 2 data x 2 model ranks); P0 and P1 belong to the shared
+    card. It is the entry point of the multi-card checks until a
+    multi-card cell exists."""
     cfg = ModelConfig()
     dev = torch.device(DEV)
     launches = {}
@@ -1946,7 +1946,7 @@ def phase_parallel(smi, ranks=2, backend="gloo"):
         steps_per_epoch = len(train_anns) // B
         train = ["-m", "spacap3d_tpu_torch.scripts.train", "--multihost", "--dist_backend",
                  backend, "--dist_timeout", str(PARALLEL_COLLECTIVE_S), "--device", DEV,
-                 "--data_root", root, "--output_dir", cli_out, *PARALLEL_CLI_ARCH,
+                 "--data_root", root, "--output_dir", cli_out, "--arch_preset", "full",
                  "--batch_size", str(B), "--epoch", "1", "--val_step", str(steps_per_epoch - 2),
                  "--verbose", "8", "--num_workers", "4", "--seed", "0", "--tag", "mh"]
         t0 = time.perf_counter()

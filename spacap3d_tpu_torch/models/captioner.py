@@ -50,6 +50,7 @@ from spacap3d_tpu_torch.models.core import (
     reduce_from_group,
     ref_layer_norm,
     run_layers,
+    split_generators,
 )
 from spacap3d_tpu_torch.ops.nn_distance import nn_distance
 
@@ -78,11 +79,13 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention(q, k, v, mask, rate: float = 0.0, gen=None):
     """q, k, v (B, h, T, dk); mask broadcastable bool (.., T, S) or None.
-    Returns the output and the (dropped-out) probabilities."""
+    Returns the output and the (dropped-out) probabilities. The heads are
+    this rank's under tensor parallelism, so their masks come from the
+    rank's own generator."""
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    p = dropout(torch.softmax(scores, dim=-1), rate, gen)
+    p = dropout(torch.softmax(scores, dim=-1), rate, gen, local=True)
     return torch.matmul(p, v), p
 
 
@@ -113,7 +116,7 @@ class PositionwiseFeedForward(nn.Module):
         self.w_2 = Dense(d_ff, d_model, init="xavier")
 
     def forward(self, x, rate: float = 0.0, gen=None):
-        return self.w_2(dropout(torch.relu(self.w_1(x)), rate, gen))
+        return self.w_2(dropout(torch.relu(self.w_1(x)), rate, gen, local=True))
 
 
 class SublayerConnection(nn.Module):
@@ -286,8 +289,9 @@ class _DecodeWeights:
 
 
 class Captioner(nn.Module):
-    # the model group under tensor parallelism (parallel/tp.py), else None
-    tp_group = None
+    # the model group and this rank's place in it under tensor parallelism
+    # (parallel/tp.py), else None and 0
+    tp_group, tp_rank = None, 0
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -409,10 +413,14 @@ class Captioner(nn.Module):
         ``lang_label`` / ``ref_center_label``: ``lang_cap`` (B, T, vocab)
         log-probs, ``match_idx``, ``good_bbox_masks``, ``pred_ious`` and,
         with the relation head, ``relation_pred`` (B, K, K, 9). Dropout at
-        ``transformer_dropout`` in train mode, drawn from ``gen``; the
-        source embedding's BN moves its running stats at ``bn_momentum``."""
+        ``transformer_dropout`` in train mode, drawn from ``gen`` (under
+        tensor parallelism the rank's heads and FFN columns draw from a
+        generator of their own, ``split_generators``); the source
+        embedding's BN moves its running stats at ``bn_momentum``."""
         cfg = self.cfg
         rate = cfg.transformer_dropout if self.training else 0.0
+        if self.tp_group is not None and gen is not None:
+            gen = split_generators(gen, self.tp_rank)
         src = ep["aggregated_vote_features"]                    # (B, K, C)
         c = src.shape[-1]
         # the proposal nearest the annotated object

@@ -14,7 +14,7 @@ JAX package.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -119,22 +119,18 @@ class _ReduceFromGroup(torch.autograd.Function):
 
 
 class _GatherFromGroup(torch.autograd.Function):
-    """Concatenates the ranks' equal slices along ``dim`` (one all-reduce
-    of a zero tensor holding this rank's slice, which adds exact zeros);
+    """Concatenates the ranks' equal slices along ``dim`` (one all-gather);
     the backward takes this rank's slice of the gradient, which every rank
     computes alike downstream of the gather."""
 
     @staticmethod
     def forward(ctx, x, group, dim):
         rank, size = dist.get_rank(group), dist.get_world_size(group)
-        n = x.shape[dim]
-        shape = list(x.shape)
-        shape[dim] = n * size
-        full = x.new_zeros(shape)
-        full.narrow(dim, rank * n, n).copy_(x)
-        dist.all_reduce(full, group=group)
-        ctx.dim, ctx.start, ctx.n = dim, rank * n, n
-        return full
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x, group=group)
+        ctx.dim, ctx.start, ctx.n = dim, rank * x.shape[dim], x.shape[dim]
+        return torch.cat(parts, dim)
 
     @staticmethod
     def backward(ctx, dy):
@@ -259,12 +255,35 @@ def run_layers(layers: nn.Sequential, x: torch.Tensor,
     return x
 
 
-def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with masks drawn from ``gen``; the identity when
-    ``rate`` is 0 or there is no generator (as the JAX package's ``dropout``
-    without a key)."""
+class SplitGenerators(NamedTuple):
+    """The dropout generators of a tensor-parallel rank, as Megatron's
+    model-parallel RNG tracker keeps them: ``whole`` draws the masks of
+    tensors that every rank of the model group holds alike (the same masks
+    on each rank), ``local`` those of the rank's own attention heads and
+    FFN columns, its seed folding in the model rank, so that no two
+    slices of one tensor share a mask."""
+    whole: torch.Generator
+    local: torch.Generator
+
+
+def split_generators(gen: torch.Generator, model_rank: int) -> SplitGenerators:
+    """``gen`` for the whole tensors, and a generator for this model rank's
+    slices seeded from ``gen``'s seed and ``model_rank``."""
+    local = torch.Generator(device=gen.device)
+    local.manual_seed((gen.initial_seed() * 1_000_003 + 7919 * (model_rank + 1)) % (2 ** 63))
+    return SplitGenerators(gen, local)
+
+
+def dropout(x: torch.Tensor, rate: float, gen, local: bool = False) -> torch.Tensor:
+    """Inverted dropout with masks drawn from ``gen`` (a ``torch.Generator``,
+    or ``SplitGenerators`` under tensor parallelism, of which ``local``
+    picks the generator of the rank's slices); the identity when ``rate``
+    is 0 or there is no generator (as the JAX package's ``dropout`` without
+    a key)."""
     if rate == 0.0 or gen is None:
         return x
+    if isinstance(gen, SplitGenerators):
+        gen = gen.local if local else gen.whole
     keep = 1.0 - rate
     mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=gen)
     return torch.where(mask.bool(), x / keep, 0.0)

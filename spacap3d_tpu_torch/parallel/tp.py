@@ -21,7 +21,10 @@ backward), adding its bias once, after the sum. Each block then pays one
 all-reduce for its attention and one for its FFN. The relation head and
 the attention dump read every head, so the captioner gathers the heads'
 probabilities and values first; the greedy decode sizes its KV caches for
-the rank's heads. The fused decode kernels do not run under TP: with
+the rank's heads. Dropout on the rank's heads and FFN columns draws from a
+generator that folds in the model rank (``models/core.py::
+split_generators``), and on whole tensors from the step's generator, alike
+on every rank of the group. The fused decode kernels do not run under TP: with
 ``eval_decode_fused`` and ``tp > 1`` the decode raises.
 
 Groups. ``make_tp_mesh(tp)`` splits a world of ``d * tp`` ranks as the
@@ -158,7 +161,7 @@ def shard_model(model: nn.Module, mesh: TPMesh) -> nn.Module:
                 mod.tp = ("column" if dim == 0 else "row", mesh.model)
             elif isinstance(mod, MultiHeadedAttention):
                 mod.h //= tp
-    caption.tp_group = mesh.model
+    caption.tp_group, caption.tp_rank = mesh.model, mesh.model_rank
     model.tp_specs, model.tp_mesh = specs, mesh
     return model
 

@@ -27,6 +27,8 @@ import os
 import warnings
 from copy import deepcopy
 
+from spacap3d_tpu_torch.parallel.multihost import DEFAULT_TIMEOUT_S
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
@@ -91,7 +93,7 @@ def parse_args(argv=None):
                         "ranks, which all evaluate every seed")
     p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
                    help="process-group backend (default: nccl on cuda, gloo on cpu)")
-    p.add_argument("--dist_timeout", type=float, default=1800.0,
+    p.add_argument("--dist_timeout", type=float, default=DEFAULT_TIMEOUT_S,
                    help="seconds a rendezvous or a collective waits for the other ranks")
     args = p.parse_args(argv)
     # under --mul_eval the reference loop always runs caption and detection

@@ -29,6 +29,8 @@ import os
 from copy import deepcopy
 from datetime import datetime
 
+from spacap3d_tpu_torch.parallel.multihost import DEFAULT_TIMEOUT_S
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
@@ -96,7 +98,7 @@ def parse_args(argv=None):
     p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
                    help="process-group backend (default: nccl on cuda, gloo on cpu); gloo "
                         "for ranks that share one card")
-    p.add_argument("--dist_timeout", type=float, default=1800.0,
+    p.add_argument("--dist_timeout", type=float, default=DEFAULT_TIMEOUT_S,
                    help="seconds a rendezvous or a collective waits for the other ranks")
     return p.parse_args(argv)
 

@@ -24,10 +24,13 @@ Data parallelism (``group``, ``parallel/``): every rank runs the same loop
 on its row-block of each global batch (its loader's process slicing) with
 the train step's group path, so the parameters stay equal on every rank.
 Each rank validates redundantly on its own device over the whole val
-loader, so the best-checkpoint decisions agree; rank 0 alone writes logs,
-checkpoints, ``best.txt`` and the corpus and prediction files (the others
-log to a ``_NullLogger``). Dropout generators are seeded from (seed,
-global iteration, data rank).
+loader, and every rank takes rank 0's scores (one all-gather), so the
+best-checkpoint decisions agree; rank 0 alone writes logs, checkpoints,
+``best.txt`` and the corpus and prediction files (the others log to a
+``_NullLogger``). Dropout generators are seeded from (seed, global
+iteration, data rank); under TP the captioner draws the masks of the
+rank's heads and FFN columns from a second generator that folds in the
+model rank (``models/core.py::split_generators``).
 
 Tensor parallelism (``tp_mesh``, ``parallel/tp.py``): the captioner is
 cut to this rank's slices before the optimizer is built, the data group
@@ -50,7 +53,7 @@ from spacap3d_tpu_torch.config import RunConfig
 from spacap3d_tpu_torch.eval.eval_helper import eval_cap, eval_device
 from spacap3d_tpu_torch.parallel import tp as tp_mod
 from spacap3d_tpu_torch.parallel.mesh import group_rank_size
-from spacap3d_tpu_torch.parallel.multihost import process_count, process_index
+from spacap3d_tpu_torch.parallel.multihost import allgather_pyobj, process_count, process_index
 from spacap3d_tpu_torch.train.step import make_eval_step, make_optimizer, make_train_step
 from spacap3d_tpu_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint
 from spacap3d_tpu_torch.utils.logging import RunLogger, decode_eta
@@ -346,6 +349,12 @@ class Solver:
             corpus_cache=self._own_file("corpus_val.json"),
             pred_path=self._own_file("pred_val.json"),
             meteor_jar=self.meteor_jar, device=self.device)
+        if self.process_count > 1:
+            # every rank scores the same captions, but a METEOR stage that
+            # differs between hosts, or any rounding, could set one apart,
+            # and a save under TP is a collective: rank 0's scores decide
+            scores = {k: float(v) for k, v in metrics.items() if isinstance(v, (int, float))}
+            metrics = {**metrics, **allgather_pyobj(scores)[0]}
         for k, v in metrics.items():
             if isinstance(v, (int, float)):
                 self.logger.scalar("val", k, v, self.global_iter)

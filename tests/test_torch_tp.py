@@ -9,7 +9,10 @@ metrics within rel 1e-5 of the replicated step's, and, with SGD (as
 tests/test_tp.py takes it for the equality run), its gathered parameters
 within rtol 1e-5, atol 1e-6 of the replicated ones. The TP solver saves
 whole tensors, a restore cuts them back to the saved slices, and the
-checkpoint loads into a model without TP."""
+checkpoint loads into a model without TP; its ranks keep one best
+checkpoint when their validation scores differ. At dropout 0.1 each model
+rank draws its own slices' masks, and the whole parameters stay
+bit-equal."""
 import argparse
 import dataclasses
 import json
@@ -98,9 +101,117 @@ def solver_worker(argv):
     multihost.shutdown()
 
 
-if __name__ == "__main__" and sys.argv[1:2] == ["--solver_worker"]:
+def disagree_worker(argv):
+    """One rank of a TP solver whose ranks score their validations apart:
+    rank 0's scores rise at every validation, rank 1's fall after the
+    first, so that rank 1 alone would see no new best. A best checkpoint
+    under TP is a collective, so the ranks must take one decision; writes
+    ``rank{i}.json`` with the rank's ``best``."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--root")
+    p.add_argument("--out")
+    args = p.parse_args(argv)
+    torch.set_num_threads(1)
+    from spacap3d_tpu_torch.config import DataConfig, ModelConfig, RunConfig, TrainConfig
+    from spacap3d_tpu_torch.data.dataset import ScanReferDataset, SceneStore
+    from spacap3d_tpu_torch.data.loader import DataLoader
+    from spacap3d_tpu_torch.data.scannet_config import ScannetDatasetConfig
+    from spacap3d_tpu_torch.data.vocabulary import Vocabulary
+    from spacap3d_tpu_torch.models import init_spacap
+    from spacap3d_tpu_torch.parallel import multihost
+    from spacap3d_tpu_torch.parallel.tp import make_tp_mesh
+    from spacap3d_tpu_torch.train import solver as solver_mod
+
+    rank, _ = multihost.initialize_from_env(device="cpu", timeout_s=INIT_TIMEOUT)
+    mesh = make_tp_mesh(2)
+    with open(os.path.join(args.root, "ScanRefer_filtered_all.json")) as f:
+        anns = json.load(f)
+    vocab = Vocabulary.build(anns, max_len=MODEL["max_des_len"])
+    cfg = RunConfig(model=ModelConfig(**dict(MODEL, vocab_size=len(vocab))),
+                    train=TrainConfig(batch_size=4, epoch=1, val_step=1, verbose=1, seed=5),
+                    data=DataConfig(data_root=args.root, num_points=MODEL["num_points"],
+                                    augment=False, use_relation=True,
+                                    max_des_len=MODEL["max_des_len"], num_workers=1),
+                    output_dir=args.out)
+    dc = ScannetDatasetConfig()
+    ds = ScanReferDataset(anns, SceneStore(cfg.data.scannet_data,
+                                           sorted({a["scene_id"] for a in anns}),
+                                           load_relations=True),
+                          vocab, dc, cfg.data, split="train")
+    validations = []
+
+    def eval_cap(*_, **__):
+        validations.append(None)
+        n = len(validations)
+        score = float(n) if rank == 0 else 1.0 / n
+        return {k: score for k in solver_mod.CAPTION_METRICS}, []
+
+    solver_mod.eval_cap = eval_cap
+    model = init_spacap(cfg.model, seed=3, device="cpu")
+    multihost.replicate_global(model)
+    loader = DataLoader(ds, 4, shuffle=True, seed=5, num_workers=1)
+    solver = solver_mod.Solver(cfg, model, loader, loader, ds, ds, vocab, dc, anns, "tpD",
+                               device="cpu", tp_mesh=mesh)
+    solver(epochs=1, verbose=1)
+    with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
+        json.dump({"best": solver.best, "validations": len(validations)}, f)
+    multihost.shutdown()
+
+
+def dropout_worker(argv):
+    """One rank of a TP = 2 train step at dropout 0.1 on a (data=1, model=2)
+    split. Records each dropout draw (whether it drew from the rank's own
+    generator, and which nonzero entries of its input it dropped) into
+    ``rank{i}.pt``, with the parameters that every rank holds whole after
+    the step (Adam)."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--out")
+    args = p.parse_args(argv)
+    torch.set_num_threads(1)
+    from spacap3d_tpu_torch.config import ModelConfig, TrainConfig
+    from spacap3d_tpu_torch.data.synthetic import train_batch
+    from spacap3d_tpu_torch.models import captioner, init_spacap
+    from spacap3d_tpu_torch.parallel import mesh as mesh_mod
+    from spacap3d_tpu_torch.parallel import multihost
+    from spacap3d_tpu_torch.parallel.mp_dryrun import digest
+    from spacap3d_tpu_torch.parallel.tp import make_tp_mesh, shard_model
+    from spacap3d_tpu_torch.train.solver import dropout_generator
+    from spacap3d_tpu_torch.train.step import make_optimizer, make_train_step
+
+    rank, _ = multihost.initialize_from_env(device="cpu", timeout_s=INIT_TIMEOUT)
+    mesh = make_tp_mesh(2)
+    cfg = ModelConfig(**dict(MODEL, transformer_dropout=0.1))
+    model = init_spacap(cfg, seed=2, device="cpu")
+    shard_model(model, mesh)
+    tc = TrainConfig()
+    step = make_train_step(cfg, tc, make_optimizer(model, tc, 10)[0], device="cpu",
+                           group=mesh.data)
+    draws, plain = [], captioner.dropout
+
+    def recording(x, rate, gen, local=False):
+        y = plain(x, rate, gen, local)
+        draws.append({"local": local, "nonzero": x != 0, "dropped": (y == 0) & (x != 0)})
+        return y
+
+    captioner.dropout = recording
+    batch = mesh_mod.shard_batch(mesh.data, train_batch(cfg, 4, seed=1))
+    metrics = step(model, batch, dropout_generator("cpu", 5, 0, mesh.data_rank), 0.1)
+    whole = {n: p.detach() for n, p in model.named_parameters()
+             if model.tp_specs.get(n) is None}
+    torch.save({"draws": [{k: v if k == "local" else v.detach() for k, v in d.items()}
+                          for d in draws]},
+               os.path.join(args.out, f"rank{rank}.pt"))
+    with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
+        json.dump({"whole_digest": digest(whole), "whole": len(whole),
+                   "loss": float(metrics["loss"])}, f)
+    multihost.shutdown()
+
+
+WORKERS = {"--solver_worker": solver_worker, "--disagree_worker": disagree_worker,
+           "--dropout_worker": dropout_worker}
+if __name__ == "__main__" and sys.argv[1:2] and sys.argv[1] in WORKERS:
     sys.path.insert(0, REPO)
-    solver_worker(sys.argv[2:])
+    WORKERS[sys.argv[1]](sys.argv[2:])
     sys.exit(0)
 
 import jax  # noqa: E402
@@ -297,3 +408,49 @@ def test_tp_solver_saves_whole_tensors_and_restores_its_slices(tmp_path):
                                       w2[:, rank * half:(rank + 1) * half].numpy())
     moments = ckpt["optimizer_state_dict"]["state"]
     assert {tuple(m["exp_avg"].shape) for m in moments.values()} >= {tuple(w2.shape)}
+
+
+def test_tp_dropout_masks_differ_across_model_ranks(tmp_path):
+    """At dropout 0.1 each model rank draws the masks of its own heads and
+    FFN columns from a generator of its own (no two slices of one tensor
+    share a mask, as JAX draws one mask over the whole tensor), and the
+    masks of the tensors every rank holds whole from the step's generator,
+    alike on both ranks; the whole parameters stay bit-equal after the
+    step."""
+    results = run_world([os.path.abspath(__file__), "--dropout_worker", "--out",
+                         str(tmp_path)], tmp_path)
+    assert results[0]["whole_digest"] == results[1]["whole_digest"] and results[0]["whole"]
+    assert all(np.isfinite(r["loss"]) for r in results)
+    a, b = (torch.load(tmp_path / f"rank{r}.pt", weights_only=True)["draws"] for r in (0, 1))
+    assert [d["local"] for d in a] == [d["local"] for d in b]
+    local = [(x, y) for x, y in zip(a, b) if x["local"]]
+    whole = [(x, y) for x, y in zip(a, b) if not x["local"]]
+    # per encoder and decoder layer: the attention probabilities (twice in a
+    # late-guide decoder layer) and the FFN hidden layer
+    assert len(local) >= 4 and len(whole) >= 4
+    for x, y in whole:
+        both = x["nonzero"] & y["nonzero"]
+        assert torch.equal(x["dropped"] & both, y["dropped"] & both)
+    for x, y in local:
+        both = x["nonzero"] & y["nonzero"]
+        differ = ((x["dropped"] ^ y["dropped"]) & both).sum() / both.sum()
+        # independent masks at rate 0.1 differ on ~18% of the entries
+        assert 0.1 < float(differ) < 0.26, float(differ)
+        rate = (x["dropped"].sum() / x["nonzero"].sum()).item()
+        assert 0.05 < rate < 0.15, rate
+
+
+def test_tp_solver_agrees_on_the_best_checkpoint(tmp_path):
+    """Ranks whose validation scores differ still take rank 0's decision,
+    so every rank enters each best checkpoint's gather and the run ends;
+    without it rank 0 would wait in the gather for a rank that never
+    comes."""
+    root, out = str(tmp_path / "data"), str(tmp_path / "out")
+    write_synthetic_dataset(root, num_scenes=2, seed=3)
+    results = run_world([os.path.abspath(__file__), "--disagree_worker", "--root", root,
+                         "--out", out], out)
+    n = results[0]["validations"]
+    assert n >= 2 and results[1]["validations"] == n
+    assert results[0]["best"] == results[1]["best"]
+    assert results[0]["best"]["cider"] == float(n) and results[0]["best"]["epoch"] == 1
+    assert load_checkpoint(os.path.join(out, "tpD", "model.ckpt"))["best"]["cider"] == n
