@@ -32,9 +32,14 @@ lines), and drives the command lines at full width (``scripts.train``:
 detection only, the attention and proposal dumps, ``--eval_visualize``;
 then the overfit gate), with the resume position, checkpoints equal to
 their snapshots and the launches of every step and forward (``[cli]``
-lines). Exits non-zero if any phase fails or if CUDA is missing. Prints a
-line per phase, a ``kernels`` JSON line and, last, ``{"ok": true,
-"device": ...}``.
+lines), drives the multiview path at full width (ENet over 64 frames of
+256 x 328 against the CPU, its features projected onto 8 synthetic scenes
+of 40,000 points, the multiview + normal configuration's eval forward and
+train step, the multiview CLIs whose packages import; ``[multiview]``
+lines), then the parallel runtimes on ranks that share the card
+(``[parallel]`` lines). Exits non-zero if any phase fails or if CUDA is
+missing. Prints a line per phase, a ``kernels`` JSON line and, last,
+``{"ok": true, "device": ...}``.
 """
 import contextlib
 import copy
@@ -56,6 +61,7 @@ from spacap3d_tpu_torch import ops
 from spacap3d_tpu_torch.config import EVAL_MIN_IOU, SOS_ID, DataConfig, ModelConfig, TrainConfig
 from spacap3d_tpu_torch.data.dataset import ScanReferDataset, SceneStore
 from spacap3d_tpu_torch.data.loader import DataLoader
+from spacap3d_tpu_torch.data.projection import aggregate_frames_maxpool, make_map_projection_helper
 from spacap3d_tpu_torch.data.scannet_config import ScannetDatasetConfig
 from spacap3d_tpu_torch.data.synthetic import train_batch, write_synthetic_dataset
 from spacap3d_tpu_torch.data.vocabulary import Vocabulary
@@ -65,12 +71,16 @@ from spacap3d_tpu_torch.eval.mul_eval import _build_point_tables as mul_eval_tab
 from spacap3d_tpu_torch.eval.mul_eval import mul_eval_grid
 from spacap3d_tpu_torch.models import SpaCapNet, init_spacap
 from spacap3d_tpu_torch.models.core import BatchNorm
+from spacap3d_tpu_torch.models.enet import init_enet
 from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.ops.ball_query import launch_ball_query
 from spacap3d_tpu_torch.parallel.mp_dryrun import GRID_MIN_IOU, grid_dataset, launch
 from spacap3d_tpu_torch.parallel.tp import TPMesh, shard_model
+from spacap3d_tpu_torch.scripts import compute_multiview_features as mv_features_cli
 from spacap3d_tpu_torch.scripts import eval as eval_cli
 from spacap3d_tpu_torch.scripts import overfit_gate
+from spacap3d_tpu_torch.scripts import project_multiview_features as mv_project_cli
+from spacap3d_tpu_torch.scripts import project_multiview_labels as mv_labels_cli
 from spacap3d_tpu_torch.scripts import train as train_cli
 from spacap3d_tpu_torch.tools.fps_probe import fps_capped
 from spacap3d_tpu_torch.train import solver as solver_module
@@ -154,6 +164,21 @@ MUL_EVAL_GATE_SCENES, MUL_EVAL_GATE_SEEDS, MUL_EVAL_GATE_IOU = 16, [0, 1], 0.05
 CLI_TRAIN_SCENES, CLI_VAL_SCENES, CLI_VIS_SCENES = 16, 8, 2
 CLI_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
 OVERFIT_ARGS = ["--scenes", "4", "--epochs", "250", "--threshold", "0.5"]
+# the multiview phase: ENet over a batch of MV_FRAMES frames at the reference
+# frame size (scripts/compute_multiview_features.py's defaults), held to the
+# port's ENet on the CPU on the first MV_CPU_FRAMES frames within MV_ENET_REL
+# of the output's largest magnitude (the CPU tests' tolerance against JAX;
+# TF32 off); MV_FRAMES_PER_SCENE frames a scene from top-down cameras
+# MV_CAMERA_Z m up (focal MV_FOCAL px: a 4 x 2 grid covers the 6 x 6 m room),
+# at least MV_SEEN_MIN of a scene's points seen (the floor and the boxes'
+# tops, 0.34-0.52 of these scenes' points; the inside of a filled box is
+# hidden); MV_FORWARDS timed forwards; the CLIs on MV_CLI_SCENES scenes (the
+# last one val)
+MV_FRAMES_PER_SCENE = 8
+MV_FRAMES, MV_H, MV_W = B * MV_FRAMES_PER_SCENE, 256, 328
+MV_CPU_FRAMES, MV_ENET_REL, MV_ENET_RUNS = 4, 1e-4, 10
+MV_FOCAL, MV_CAMERA_Z, MV_DEPTH_MIN, MV_DEPTH_MAX = 290.0, 3.5, 0.1, 4.0
+MV_SEEN_MIN, MV_FORWARDS, MV_CLI_SCENES = 0.25, 10, 4
 # the parallel phase: ranks started as processes (parallel/mp_dryrun.py and
 # the command lines with --multihost); every world has at most
 # PARALLEL_TIMEOUT seconds and each rank's collectives PARALLEL_COLLECTIVE_S.
@@ -1134,18 +1159,25 @@ def bn_buffers(model):
 
 def phase_train_step():
     """The full-width train step: default ModelConfig, TrainConfig(), B=8,
-    ``train_batch`` at 40,000 points, seeded weights and a seeded CUDA
-    dropout generator (rate 0.1). The first step is the counted run (every
-    count set to 0 just before); 3 warm-up steps, then 10 timed, each
-    ending in a synchronise and launching FPS 2, ball query 5 and the
-    decode kernels 0 times. The split into forward, loss, backward and
-    optimizer comes from the timed steps' own CUDA events. Gates: finite
-    losses and metrics, every parameter's gradient finite and not zero
-    over the run,
-    ``mean_size_arr`` unchanged, every BN's running stats moved, and the
-    best loss of the second half below the first step's."""
-    cfg, tc = ModelConfig(), TrainConfig()
-    batch = to_device_batch(train_batch(cfg, B, seed=0), torch.device(DEV))
+    ``train_batch`` at 40,000 points (``run_train_steps``)."""
+    cfg = ModelConfig()
+    return run_train_steps(cfg, train_batch(cfg, B, seed=0), "train_step")
+
+
+def run_train_steps(cfg, batch, what):
+    """``make_train_step`` of ``cfg`` on one ``batch`` (numpy), TrainConfig(),
+    seeded weights and a seeded CUDA dropout generator (rate 0.1). The first
+    step is the counted run (every count set to 0 just before); 3 warm-up
+    steps, then 10 timed, each ending in a synchronise and launching FPS 2,
+    ball query 5 and the decode kernels 0 times. The split into forward,
+    loss, backward and optimizer comes from the timed steps' own CUDA
+    events. Gates: finite losses and metrics, every parameter's gradient
+    finite and not zero over the run, ``mean_size_arr`` unchanged, every
+    BN's running stats moved, and the best loss of the second half below
+    the first step's. Logs ``[what]`` and returns (launches, {step_ms,
+    peak_mem_gib, device_busy_ms})."""
+    tc = TrainConfig()
+    batch = to_device_batch(batch, torch.device(DEV))
     model = init_spacap(cfg, seed=0, device=DEV)
     opt, sched = make_optimizer(model, tc, steps_per_epoch=1000)
     step = make_train_step(cfg, tc, opt, device=DEV, scheduler=sched)
@@ -1204,7 +1236,8 @@ def phase_train_step():
     zero = [n for (n, _), v in zip(params, seen.tolist()) if v == 0.0]
     nonfinite = [n for (n, _), ok in zip(params, finite.tolist()) if not ok]
     bn_still = [n for n, b in bn_buffers(model).items() if torch.equal(b, bn0[n])]
-    log("train_step", batch=B, num_points=cfg.num_points, proposals=cfg.num_proposals,
+    log(what, batch=B, num_points=cfg.num_points, proposals=cfg.num_proposals,
+        input_feature_dim=cfg.input_feature_dim,
         dropout=cfg.transformer_dropout, lr=tc.lr, transformer_lr=tc.transformer_lr, wd=tc.wd,
         launches=launches, warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_TIMED,
         step_ms=med, step_ms_all=times, train_scenes_per_s=B / (med / 1e3),
@@ -1218,7 +1251,7 @@ def phase_train_step():
         grads_zero_over_run=zero, grads_nonfinite=nonfinite, bn_buffers=len(bn0),
         bn_buffers_unmoved=bn_still, mean_size_arr_unchanged=bool(torch.equal(
             model.mean_size_arr, msa)))
-    log("profile", path="train_step", **prof)
+    log("profile", path=what, **prof)
     if zero or nonfinite:
         raise AssertionError(f"gradients zero over the run {zero[:5]} or non-finite "
                              f"{nonfinite[:5]}")
@@ -1227,7 +1260,8 @@ def phase_train_step():
                              f"changed")
     if not min(losses[half:]) < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    return launches
+    return launches, {"step_ms": med, "peak_mem_gib": peak,
+                      "device_busy_ms": prof.get("device_busy_ms")}
 
 
 def train_once(model, cfg, tc, batch, pin=None):
@@ -1395,6 +1429,333 @@ def phase_cpu_vs_gpu_train():
         raise AssertionError(f"CPU and GPU train-forward indices differ: {equal}")
     if failed:
         raise AssertionError("CPU and GPU train steps differ: " + "; ".join(failed))
+
+
+def mv_intrinsic():
+    """The frames' pinhole intrinsic at MV_H x MV_W (4 x 4, as ScanNet's
+    ``intrinsic.txt``)."""
+    k = np.eye(4)
+    k[0, 0] = k[1, 1] = MV_FOCAL
+    k[0, 2], k[1, 2] = (MV_W - 1) / 2, (MV_H - 1) / 2
+    return k
+
+
+def mv_poses():
+    """MV_FRAMES_PER_SCENE camera-to-world poses: a 4 x 2 grid over the 6 x 6
+    m room, MV_CAMERA_Z above the floor, looking straight down."""
+    poses = []
+    for cy in (1.5, 4.5):
+        for cx in (0.75, 2.25, 3.75, 5.25):
+            pose = np.eye(4)
+            pose[:3, :3] = np.diag([1.0, -1.0, -1.0])
+            pose[:3, 3] = [cx, cy, MV_CAMERA_Z]
+            poses.append(pose)
+    return poses
+
+
+def mv_depth(helper, xyz, pose):
+    """A depth map at the helper's (feature-map) grid rendered from the
+    scene's own points: the nearest point each pixel, 0 where none lands
+    (the projection's arithmetic, ``ProjectionHelper.project_points``)."""
+    w, h = helper.image_dims
+    cam = (np.concatenate([xyz, np.ones((len(xyz), 1))], 1) @ np.linalg.inv(pose).T)[:, :3]
+    z = cam[:, 2]
+    px = np.round(cam[:, 0] / z * helper.intrinsic[0, 0] + helper.intrinsic[0, 2])
+    py = np.round(cam[:, 1] / z * helper.intrinsic[1, 1] + helper.intrinsic[1, 2])
+    ok = (z > 0) & (px >= 0) & (px < w) & (py >= 0) & (py < h)
+    depth = np.full((h, w), np.inf)
+    np.minimum.at(depth, (py[ok].astype(np.int64), px[ok].astype(np.int64)), z[ok])
+    depth[np.isinf(depth)] = 0.0
+    return depth
+
+
+def mv_helper():
+    return make_map_projection_helper(mv_intrinsic(), (MV_H, MV_W), (MV_W // 8, MV_H // 8),
+                                      MV_DEPTH_MIN, MV_DEPTH_MAX)
+
+
+def mv_project(xyz, feats):
+    """ENet maps (MV_FRAMES_PER_SCENE, H/8, W/8, 128) of one scene onto its
+    points (``aggregate_frames_maxpool``) -> ((N, 128) float32, the share of
+    points some frame saw)."""
+    helper = mv_helper()
+    frames = [{"features": f, "depth": mv_depth(helper, xyz, pose), "pose": pose}
+              for f, pose in zip(feats, mv_poses())]
+    seen = np.zeros(len(xyz), bool)
+    for fr in frames:
+        seen |= helper.project_points(xyz, fr["depth"], fr["pose"])[0]
+    return aggregate_frames_maxpool(xyz, frames, helper), float(seen.mean())
+
+
+def multiview_clouds(batch, mv):
+    """``train_batch``'s (B, N, xyz + height) clouds -> the multiview+normal
+    input (B, N, 3 + 132): xyz, normals (the synthetic scenes' floor normal,
+    0 0 1, as ``data/synthetic.py`` writes them), the projected features,
+    height; the dataset's order."""
+    pc = batch["point_clouds"]
+    normals = np.broadcast_to(np.array([0, 0, 1], np.float32), pc.shape[:2] + (3,))
+    return np.concatenate([pc[..., :3], normals, mv, pc[..., 3:]], -1).astype(np.float32)
+
+
+def mv_enet(imgs):
+    """ENet at MV_FRAMES x MV_H x MV_W on the card (seeded weights, eval): the
+    first MV_CPU_FRAMES frames' features and logits against the CPU's, device
+    ms a batch, busy ms, peak memory -> (features NHWC numpy, summary)."""
+    model = init_enet(seed=0, device=DEV)
+    x = torch.from_numpy(imgs).to(DEV).permute(0, 3, 1, 2)       # as the feature CLI
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        feats, logits = model(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        cpu_feats, cpu_logits = init_enet(seed=0, device="cpu")(
+            torch.from_numpy(imgs[:MV_CPU_FRAMES]).permute(0, 3, 1, 2))
+        err = {}
+        for name, got, want in (("features", feats, cpu_feats), ("logits", logits, cpu_logits)):
+            got = got[:MV_CPU_FRAMES].cpu()
+            err[name] = float((got - want).abs().max() / want.abs().max())
+        ms = cuda_ms(lambda: model.encode(x), reps=1, runs=MV_ENET_RUNS, warmup=3)
+        prof = device_profile(lambda: (model.encode(x), torch.cuda.synchronize()),
+                              {k: 0 for k in PROFILED})
+    summary = {"frames": MV_FRAMES, "height": MV_H, "width": MV_W,
+               "feature_map": list(feats.shape), "logits": list(logits.shape),
+               "rel_err_vs_cpu": err, "tolerance": MV_ENET_REL, "ms_per_batch": ms,
+               "frames_per_s": MV_FRAMES / (ms / 1e3),
+               "device_busy_ms": prof.get("device_busy_ms"),
+               "device_spans": prof.get("device_spans"), "peak_mem_gib": peak,
+               "top_device_ms": prof.get("top_device_ms", [])[:6]}
+    log("multiview", enet=summary)
+    if max(err.values()) > MV_ENET_REL or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"ENet on the card against the CPU: {err}")
+    return feats.permute(0, 2, 3, 1).contiguous().cpu().numpy(), summary
+
+
+def mv_packages():
+    """Which of the CLIs' host packages import on this machine."""
+    import importlib
+
+    have = {}
+    for name in ("PIL", "h5py", "matplotlib"):
+        try:
+            importlib.import_module(name)
+            have[name] = True
+        except ImportError:
+            have[name] = False
+    return have
+
+
+def mv_write_frames(frames_root, scene_dir, sid, rng):
+    """One scene's frames as ScanNet lays them out: colour jpg (seeded
+    noise), 16-bit depth png in mm at MV_H x MV_W (rendered at the feature
+    grid from the scene's points, each cell repeated 8 x 8, so that the
+    CLI's resample to the grid reads it back), pose txt, intrinsic.txt."""
+    from PIL import Image
+
+    xyz = np.load(os.path.join(scene_dir, f"{sid}_aligned_vert.npy"))[:, :3]
+    d = os.path.join(frames_root, sid)
+    for sub in ("color", "depth", "pose"):
+        os.makedirs(os.path.join(d, sub))
+    np.savetxt(os.path.join(d, "intrinsic.txt"), mv_intrinsic())
+    helper = mv_helper()
+    for i, pose in enumerate(mv_poses()):
+        Image.fromarray((rng.rand(MV_H, MV_W, 3) * 255).astype(np.uint8)).save(
+            os.path.join(d, "color", f"{i}.jpg"))
+        depth = np.repeat(np.repeat(mv_depth(helper, xyz, pose), 8, 0), 8, 1)
+        Image.fromarray(np.round(depth * 1000).astype(np.uint16)).save(
+            os.path.join(d, "depth", f"{i}.png"))
+        np.savetxt(os.path.join(d, "pose", f"{i}.txt"), pose)
+
+
+def mv_clis():
+    """The multiview CLIs on the card on what a user would give them:
+    MV_CLI_SCENES synthetic scenes of MUL_EVAL_SCENE (the last one val)
+    written to a temporary directory, with their frames
+    (``mv_write_frames``). ``compute_multiview_features --device cuda`` and
+    ``project_multiview_labels --maxpool --device cuda`` (PIL); the
+    features projected onto each scene's points by the projection CLI's own
+    ``project_scene``; where h5py imports, ``project_multiview_features``
+    into the data root's ``enet_feats_maxpool.hdf5`` and one ``train
+    --arch_preset full --epoch 1 --use_multiview --use_normal`` epoch on it,
+    with FPS 2, ball query 5, decode 0 in every train step and validation
+    forward. Gates on their files. A CLI whose package is missing is logged
+    as NOT RUN. Returns the counts from just before the first CLI to just
+    after the last."""
+    have = mv_packages()
+    log("multiview", packages=have)
+    if not have["PIL"]:
+        log("multiview", cli="NOT RUN: every multiview CLI reads images with PIL")
+        return None
+    with tempfile.TemporaryDirectory(prefix="multiview_") as root, CliCalls() as calls, \
+            SnapshotCheck() as snap:
+        t0 = time.perf_counter()
+        anns, sids = write_synthetic_dataset(root, num_scenes=MV_CLI_SCENES, seed=2,
+                                             anns_per_object=1, **MUL_EVAL_SCENE)
+        scene_dir = os.path.join(root, "scannet", "scannet_data")
+        train_anns = [a for a in anns if a["scene_id"] in set(sids[:-1])]
+        for split, split_anns in (("train", train_anns),
+                                  ("val", [a for a in anns if a["scene_id"] == sids[-1]])):
+            with open(os.path.join(root, f"ScanRefer_filtered_{split}.json"), "w") as f:
+                json.dump(split_anns, f)
+        padded_vocabulary(train_anns).save(os.path.join(root, "ScanRefer_vocabulary.json"))
+        frames_root, feats_root = os.path.join(root, "frames"), os.path.join(root, "enet")
+        rng = np.random.RandomState(3)
+        for sid in sids:
+            mv_write_frames(frames_root, scene_dir, sid, rng)
+        points = {sid: np.load(os.path.join(scene_dir, f"{sid}_aligned_vert.npy"))[:, :3]
+                  for sid in sids}
+        write_s = time.perf_counter() - t0
+
+        for k in KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        mv_features_cli.main(["--frames_root", frames_root, "--out_root", feats_root,
+                              "--device", DEV])
+        features_s = time.perf_counter() - t0
+        shapes = {np.load(os.path.join(feats_root, sid, f)).shape
+                  for sid in sids for f in os.listdir(os.path.join(feats_root, sid))}
+        seen = {}
+        for sid in sids:
+            agg, _ = mv_project_cli.project_scene(
+                points[sid], os.path.join(frames_root, sid), os.path.join(feats_root, sid),
+                MV_DEPTH_MIN, MV_DEPTH_MAX)
+            if agg.shape != (len(points[sid]), 128) or not np.isfinite(agg).all():
+                raise AssertionError(f"{sid}: projected features {agg.shape}")
+            seen[sid] = float((agg != 0).any(1).mean())
+        labels_root = os.path.join(root, "labels")
+        t0 = time.perf_counter()
+        mv_labels_cli.main(["--scene_dir", scene_dir, "--frames_root", frames_root,
+                            "--out_root", labels_root, "--maxpool", "--device", DEV])
+        labels_s = time.perf_counter() - t0
+        plys = {}
+        for sid in sids:
+            with open(os.path.join(labels_root, f"{sid}.ply")) as f:
+                plys[sid] = int(f.read(60).split("element vertex ")[1].split()[0])
+        log("multiview", cli_files={"scenes": MV_CLI_SCENES, "frames_per_scene":
+                                    MV_FRAMES_PER_SCENE, "feature_shapes": sorted(shapes),
+                                    "share_seen": seen, "label_ply_vertices": plys},
+            write_s=write_s, features_s=features_s, labels_s=labels_s)
+        if (shapes != {(MV_H // 8, MV_W // 8, 128)} or min(seen.values()) < MV_SEEN_MIN
+                or any(plys[sid] != len(points[sid]) for sid in sids)):
+            raise AssertionError(f"multiview CLI files: {shapes}, seen {seen}, plys {plys}")
+        if not have["h5py"]:
+            log("multiview", cli="NOT RUN: project_multiview_features and train "
+                "--use_multiview read and write HDF5 with h5py, which does not import here")
+            return {k: f.launches for k, f in KERNELS.items()}
+
+        h5 = os.path.join(scene_dir, "enet_feats_maxpool.hdf5")
+        mv_project_cli.main(["--scene_dir", scene_dir, "--frames_root", frames_root,
+                             "--features_root", feats_root, "--out", h5])
+        steps_per_epoch = len(train_anns) // B
+        solver, steps = train_cli_run(
+            calls, snap, ["--data_root", root, "--output_dir", os.path.join(root, "outputs"),
+                          "--arch_preset", "full", "--batch_size", str(B), "--epoch", "1",
+                          "--use_multiview", "--use_normal", "--val_step",
+                          str(steps_per_epoch - 1), "--verbose", "2", "--num_workers", "8",
+                          "--seed", "0", "--device", DEV, "--tag", "multiview"],
+            "multiview_train")
+        launches = {k: f.launches for k, f in KERNELS.items()}
+        dim = solver.mc.input_feature_dim
+        if dim != 132 or len(steps) != steps_per_epoch or not solver.timing["val"]:
+            raise AssertionError(f"multiview train CLI: input_feature_dim {dim}, "
+                                 f"{len(steps)} steps, {len(solver.timing['val'])} validations")
+        log("multiview", cli_launches=launches, train_steps=len(steps),
+            input_feature_dim=dim)
+    return launches
+
+
+def phase_multiview(default_forward_scenes_per_s, default_train):
+    """The multiview path at full width. ENet over MV_FRAMES frames of MV_H x
+    MV_W (``mv_enet``); its features projected onto the B scenes of
+    ``train_batch`` (40,000 points; MV_FRAMES_PER_SCENE frames a scene,
+    depth rendered from the scene's points, ``mv_project``); then the
+    multiview+normal configuration (``DataConfig(use_multiview=True,
+    use_normal=True)``, input_feature_dim 132, the default ModelConfig
+    otherwise) on those clouds: the eval forward (counted run: FPS 2, ball
+    query 5, decode 0; tokens in range, floats finite; MV_FORWARDS timed in
+    turns with the default input's forward on the same scenes, both
+    profiled) and the train step (``run_train_steps``), beside the default
+    configuration's from the train-step phase; then the CLIs
+    (``mv_clis``). Every count is set to 0 just before each counted run and
+    read just after. Returns the launches by run."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(0)
+    imgs = rng.rand(MV_FRAMES, MV_H, MV_W, 3).astype(np.float32)
+    feats, enet = mv_enet(imgs)
+
+    dim = DataConfig(use_multiview=True, use_normal=True).input_feature_dim
+    cfg = dataclasses.replace(ModelConfig(), input_feature_dim=dim)
+    batch = train_batch(cfg, B, seed=0)
+    t0 = time.perf_counter()
+    per_scene = [mv_project(batch["point_clouds"][b, :, :3].astype(np.float64),
+                            feats[b * MV_FRAMES_PER_SCENE:(b + 1) * MV_FRAMES_PER_SCENE])
+                 for b in range(B)]
+    project_s = time.perf_counter() - t0
+    mv = np.stack([p[0] for p in per_scene])
+    seen = [p[1] for p in per_scene]
+    plain_clouds = batch["point_clouds"]
+    batch["point_clouds"] = multiview_clouds(batch, mv)
+    log("multiview", projected_scenes=B, points=cfg.num_points, share_seen=seen,
+        host_project_s=project_s, cloud_shape=list(batch["point_clouds"].shape))
+    if min(seen) < MV_SEEN_MIN or not np.isfinite(mv).all():
+        raise AssertionError(f"projection: share of points seen {seen}")
+
+    # the same scenes through the default input (xyz + height) and through
+    # the multiview one, timed in turns
+    want = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
+    paths = {}
+    for name, c, pc in (("multiview", cfg, batch["point_clouds"]),
+                        ("default", ModelConfig(), plain_clouds)):
+        paths[name] = {"cfg": c, "model": init_spacap(c, seed=0, device=DEV),
+                       "step": make_eval_step(c, device=DEV),
+                       "batch": {"point_clouds": pc, "center_label": batch["center_label"]}}
+
+    def forward(name):
+        p = paths[name]
+        before = {k: f.launches for k, f in KERNELS.items()}
+        out = p["step"](p["model"], p["batch"])
+        torch.cuda.synchronize()
+        got = {k: f.launches - before[k] for k, f in KERNELS.items()}
+        if got != want:
+            raise AssertionError(f"{name} forward launched {got}, want {want}")
+        return out
+
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = forward("multiview")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"eval_forward": {k: f.launches for k, f in KERNELS.items()}}
+    shapes = check_outputs(cfg, out)
+    times = {name: [] for name in paths}
+    for name in ["multiview", "default", "default", "multiview"] * (MV_FORWARDS // 2):
+        t0 = time.perf_counter()
+        forward(name)
+        times[name].append(time.perf_counter() - t0)
+    summary = {}
+    for name in paths:
+        med = float(np.median(times[name]))
+        prof = device_profile(lambda: forward(name), want)
+        summary[name] = {"forward_s": med, "scenes_per_s": B / med,
+                         "device_busy_ms": prof.get("device_busy_ms"),
+                         "device_spans": prof.get("device_spans"),
+                         "top_device_ms": prof.get("top_device_ms", [])[:5],
+                         "forward_s_all": times[name]}
+    log("multiview_eval_forward", batch=B, num_points=cfg.num_points, input_feature_dim=dim,
+        launches=launches["eval_forward"], outputs=shapes, peak_mem_gib=peak,
+        in_turns=summary, eval_phase_default_scenes_per_s=default_forward_scenes_per_s)
+    del paths, out
+
+    launches["train_step"], train = run_train_steps(cfg, batch, "multiview_train_step")
+    log("multiview", train_step_ms=train["step_ms"], default_train_step_ms=default_train["step_ms"],
+        train_peak_mem_gib=train["peak_mem_gib"],
+        default_train_peak_mem_gib=default_train["peak_mem_gib"],
+        train_device_busy_ms=train["device_busy_ms"],
+        default_train_device_busy_ms=default_train["device_busy_ms"])
+    cli = mv_clis()
+    if cli is not None:
+        launches["cli"] = cli
+    log("multiview", phase_s=time.perf_counter() - t_phase, enet_ms_per_batch=enet["ms_per_batch"])
+    return launches
 
 
 def cli_split(root):
@@ -2028,11 +2389,12 @@ def main() -> int:
     per_shape = phase_kernels()
     per_shape.update(phase_decode_kernels())
     launches, forward_scenes_per_s = phase_eval_forward()
-    train_launches = phase_train_step()
+    train_launches, train_summary = phase_train_step()
     phase_cpu_vs_gpu()
     phase_cpu_vs_gpu_train()
     mul_eval_launches = phase_mul_eval(forward_scenes_per_s)
     cli_launches = phase_cli()
+    multiview_launches = phase_multiview(forward_scenes_per_s, train_summary)
     parallel_launches = phase_parallel(smi)
 
     meta = {
@@ -2054,6 +2416,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
             "train_launches": train_launches[name],
+            "multiview_launches": {run: per[name] for run, per in multiview_launches.items()},
             "mul_eval_launches": mul_eval_launches[name],
             "cli_launches": cli_launches[name],
             "parallel_launches": {leg: [c[name] for c in per]

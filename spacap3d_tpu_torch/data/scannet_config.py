@@ -2,13 +2,14 @@
 mean box sizes and the heading bins, as ``spacap3d_tpu/data/scannet_config.py``.
 
 The metadata it reads sits beside this module: ``scannet_reference_means.npz``
-(the 18 x 3 mean box sizes) and ``scannetv2-labels.combined.tsv`` (the raw
-ScanNet label -> nyu40 map), copies of the files the JAX package reads.
+(the 18 x 3 mean box sizes), ``scannetv2-labels.combined.tsv`` (the raw
+ScanNet label -> nyu40 map) and the split lists ``scannetv2_{train,val,test}.txt``,
+copies of the files the JAX package reads.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -123,3 +124,9 @@ class ScannetDatasetConfig:
         obb[:, 3:6] = self.class2size_batch(size_class, size_residual)
         obb[:, 6] = -1 * self.class2angle_batch(heading_class, heading_residual)
         return obb
+
+
+def scannet_split(split: str, meta_dir: str = META_DIR) -> List[str]:
+    """The sorted scene ids of ScanNet v2's ``split`` (train, val or test)."""
+    with open(os.path.join(meta_dir, f"scannetv2_{split}.txt")) as f:
+        return sorted(line.strip() for line in f if line.strip())

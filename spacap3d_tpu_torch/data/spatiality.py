@@ -15,7 +15,8 @@ x/y-axis: with a's extent [amin, amax] and b's 30% / 70% landmarks,
   a forward pair takes class 0, its transpose class 2.
 
 Boxes: (M, >= 6) rows [cx, cy, cz, dx, dy, dz, ...]; the matrices are
-(M, M) uint32 in row order.
+(M, M) uint32 in row order. ``plot_relation_heatmap`` draws one as the JAX
+module's does (matplotlib, imported when called).
 """
 from __future__ import annotations
 
@@ -80,3 +81,55 @@ def xy_relation(bboxes: np.ndarray, dim: int) -> np.ndarray:
 def generate_relation_labels(bboxes: np.ndarray) -> Dict[str, np.ndarray]:
     """Per-scene ground truth: {'x', 'y', 'z'} -> (M, M) uint32."""
     return {"x": xy_relation(bboxes, 0), "y": xy_relation(bboxes, 1), "z": z_relation(bboxes)}
+
+
+def plot_relation_heatmap(
+    matrix: np.ndarray,
+    labels,
+    axis: str,
+    scene_id: str,
+    save_path: str | None = None,
+    show: bool = False,
+    dryrun: bool = False,
+    verbose: bool = False,
+):
+    """Annotated relation-matrix heatmap: the reference's data-integrity
+    view (generate_spatiality_label.py:77-100,143-170, a seaborn heatmap with
+    '<objid>-<name>' tick labels), drawn with matplotlib alone, each cell
+    annotated with its class. Returns the figure."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg" if not show else matplotlib.get_backend())
+        import matplotlib.pyplot as plt
+    except ImportError as e:
+        raise RuntimeError("matplotlib is required for --visualize/--savefig") from e
+
+    m = matrix.shape[0]
+    fig, ax = plt.subplots(
+        figsize=(max(6, m * 0.6), max(6, m * 0.6)), dpi=80,
+        facecolor="w", edgecolor="k",
+    )
+    im = ax.imshow(matrix, cmap="cubehelix_r", vmin=matrix.min(),
+                   vmax=max(matrix.max(), 1))
+    ax.set_xticks(range(m))
+    ax.set_yticks(range(m))
+    ax.set_xticklabels(labels, rotation=90)
+    ax.set_yticklabels(labels)
+    for i in range(m):
+        for j in range(m):
+            ax.text(j, i, f"{matrix[i, j]:.2f}", ha="center", va="center",
+                    fontsize=7)
+    ax.set_title(
+        f"Relation along {axis.upper()}-axis for {scene_id}"
+    )
+    fig.colorbar(im, shrink=0.82)
+    fig.tight_layout()
+    if verbose:
+        print(f"Relation along {axis.upper()}-axis for {scene_id}")
+    if save_path and not dryrun:
+        fig.savefig(save_path)
+        if verbose:
+            print("saving", save_path)
+    if show:  # pragma: no cover - interactive
+        plt.show()
+    return fig

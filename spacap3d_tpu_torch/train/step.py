@@ -93,7 +93,9 @@ def eval_tail(cfg: ModelConfig, ep: Dict[str, torch.Tensor],
     ep["object_assignment"] = ind1
     lo = ep["bbox_corner"].amin(dim=2)                          # (B, K, 3)
     hi = ep["bbox_corner"].amax(dim=2)
-    pc3 = batch["point_clouds"][..., :3]
+    # contiguous: each of the K boxes reads every point, and a strided view of
+    # a wide cloud (135 channels with multiview features) spans more than L2
+    pc3 = batch["point_clouds"][..., :3].contiguous()
     inside = None
     for a in range(3):                                          # (B, K, N) per axis
         p = pc3[:, None, :, a]

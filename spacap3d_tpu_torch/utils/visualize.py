@@ -1,17 +1,14 @@
-"""PLY writers for point clouds and coloured box meshes, as
+"""PLY and OBJ writers for point clouds and coloured box meshes, as
 ``spacap3d_tpu/utils/visualize.py`` (reference lib/visualize_helper.py:3-153:
 write_ply, write_bbox with cylinder-edge box meshes; utils/colors.py's
-palette), for ``--eval_visualize``.
-
-Left out: the JAX module's ``export_axis_aligned_mesh`` and ``write_obj``
-serve its data-preparation scripts (``scripts/align_axis.py``,
-``scripts/visualize_scene.py``), which the port does not carry, and
-``write_scene_dump`` has no caller.
+palette), for ``--eval_visualize``, the axis-aligned mesh export
+(``scripts/align_axis.py``) and the scene check (``scripts/visualize_scene.py``).
+Each writes the same bytes as the JAX module's.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
 
@@ -91,3 +88,53 @@ def write_bbox(corners: np.ndarray, path: str, color=(0, 255, 0), radius=0.02):
             f.write(f"{v[0]} {v[1]} {v[2]} {color[0]} {color[1]} {color[2]}\n")
         for tri in faces:
             f.write(f"3 {tri[0]} {tri[1]} {tri[2]}\n")
+
+
+def write_scene_dump(
+    points: np.ndarray,
+    pred_corners: Iterable[np.ndarray],
+    pred_classes: Iterable[int],
+    out_dir: str,
+    scene_id: str,
+    colors: Optional[np.ndarray] = None,
+):
+    """Scene ply + one colored bbox ply per prediction (the
+    eval --eval_visualize output layout)."""
+    os.makedirs(out_dir, exist_ok=True)
+    write_ply(points, os.path.join(out_dir, f"{scene_id}.ply"), colors)
+    for i, (c, cls) in enumerate(zip(pred_corners, pred_classes)):
+        col = COLORS[int(cls) % len(COLORS)]
+        write_bbox(np.asarray(c),
+                   os.path.join(out_dir, f"{scene_id}_bbox_{i}_cls{int(cls)}.ply"),
+                   color=tuple(int(x) for x in col))
+
+
+def export_axis_aligned_mesh(scan_dir: str, scene_id: str, out_path: str):
+    """<scene>_vh_clean_2.ply + axisAlignment -> aligned ascii ply
+    (reference data/scannet/align_axis.py + utils/align_scene.py)."""
+    from spacap3d_tpu_torch.data.preprocess import read_axis_align_matrix, read_ply_mesh
+
+    base = os.path.join(scan_dir, scene_id, scene_id)
+    verts, _ = read_ply_mesh(base + "_vh_clean_2.ply")
+    xyz = np.stack([verts["x"], verts["y"], verts["z"]], 1).astype(np.float64)
+    align = read_axis_align_matrix(base + ".txt")
+    if align is not None:
+        homog = np.concatenate([xyz, np.ones((len(xyz), 1))], 1)
+        xyz = (homog @ align.T)[:, 0:3]
+    colors = None
+    if "red" in verts.dtype.names:
+        colors = np.stack([verts["red"], verts["green"], verts["blue"]], 1)
+    write_ply(xyz, out_path, colors)
+
+
+def write_obj(points: np.ndarray, path: str, colors: Optional[np.ndarray] = None):
+    """Vertex-only .obj writer (reference utils/pc_utils.py export style;
+    used by the scene data-integrity check, data/scannet/visualize.py)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for i in range(len(points)):
+            row = f"v {points[i, 0]} {points[i, 1]} {points[i, 2]}"
+            if colors is not None:
+                c = colors[i] / 255.0
+                row += f" {c[0]} {c[1]} {c[2]}"
+            f.write(row + "\n")
