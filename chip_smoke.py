@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``spacap3d_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version at every shape the eval forward gives it
+Builds the CUDA kernels from ``spacap3d_tpu_torch/csrc`` and the host
+library from ``csrc/spacap_host.cpp`` (each binding of ``data/native.py``
+held to its plain numpy version under ``==`` and timed against it, in
+turns, at the grid's and the train CLI's shapes; ``[host]`` lines), holds
+each kernel against its plain PyTorch version at every shape the eval forward gives it
 (FPS also at every cluster size the device holds, on lattice ties, a ragged
 row, a row with fewer valid points than picks, a 60,000-point row and a row
 above the cluster kernel's limit; ball query twice and at each of its
@@ -25,14 +28,16 @@ a reduced size, for the eval forward and for a train step, and drives the
 eval harness at full width (``mul_eval_grid``, ``eval_cap``) on a
 synthetic 141-scene val split: equal per-seed rows from the grid, its
 per-row upload and the serial protocol, the launches of every grid
-forward, and ``mul_eval_e2e_rows_per_sec`` with its phases (``[mul_eval]``
-lines), and drives the command lines at full width (``scripts.train``:
+forward, and ``mul_eval_e2e_rows_per_sec`` with its phases, with the host
+library and with its plain versions in turns (``[mul_eval]`` lines), and
+drives the command lines at full width (``scripts.train``:
 2 epochs with a validation in each, then a resume to a third;
 ``scripts.eval``: one seed, the grid against the serial protocol,
 detection only, the attention and proposal dumps, ``--eval_visualize``;
 then the overfit gate), with the resume position, checkpoints equal to
-their snapshots and the launches of every step and forward (``[cli]``
-lines), drives the multiview path at full width (ENet over 64 frames of
+their snapshots and the launches of every step and forward, and the
+train CLI's step with the host library and with its plain versions
+(``[cli]`` lines), drives the multiview path at full width (ENet over 64 frames of
 256 x 328 against the CPU, its features projected onto 8 synthetic scenes
 of 40,000 points, the multiview + normal configuration's eval forward and
 train step, the multiview CLIs whose packages import; ``[multiview]``
@@ -59,6 +64,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from spacap3d_tpu_torch import ops
 from spacap3d_tpu_torch.config import EVAL_MIN_IOU, SOS_ID, DataConfig, ModelConfig, TrainConfig
+from spacap3d_tpu_torch.data import native
 from spacap3d_tpu_torch.data.dataset import ScanReferDataset, SceneStore
 from spacap3d_tpu_torch.data.loader import DataLoader
 from spacap3d_tpu_torch.data.projection import aggregate_frames_maxpool, make_map_projection_helper
@@ -163,6 +169,9 @@ MUL_EVAL_GATE_SCENES, MUL_EVAL_GATE_SEEDS, MUL_EVAL_GATE_IOU = 16, [0, 1], 0.05
 # 4 scenes, 250 epochs, CIDEr threshold 0.5 at its default min_iou 0.25)
 CLI_TRAIN_SCENES, CLI_VAL_SCENES, CLI_VIS_SCENES = 16, 8, 2
 CLI_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
+# the train CLI's host legs draw equal batches, so their first losses agree
+# but for the card's own reductions
+CLI_LEG_LOSS_RTOL = 1e-5
 OVERFIT_ARGS = ["--scenes", "4", "--epochs", "250", "--threshold", "0.5"]
 # the multiview phase: ENet over a batch of MV_FRAMES frames at the reference
 # frame size (scripts/compute_multiview_features.py's defaults), held to the
@@ -198,6 +207,23 @@ PARALLEL_P1_STEPS, PARALLEL_P1_RTOL = 3, 1e-6
 PARALLEL_RTOL, PARALLEL_ATOL = 1e-5, TRAIN_LOSS_ATOL
 PARALLEL_OBJ_ATOL = 1e-5
 PARALLEL_GRID_SCENES, PARALLEL_GRID_SEEDS = 16, 4
+# the host phase: each binding of the host library against its plain numpy
+# version at the grid's and the train CLI's shapes (a 52,000-point scene,
+# 40,000 drawn; ~30 instances; 256 proposals), HOST_RUNS timed calls of
+# each, in turns
+HOST_SCENE_POINTS, HOST_DRAWN, HOST_INSTANCES, HOST_BOXES, HOST_RUNS = 52000, 40000, 30, 256, 9
+# each binding of data/native.py -> its plain numpy version: the host legs
+# of the mul_eval and cli phases swap them on the module
+PLAIN_BINDINGS = {"choice_noreplace_native": "choice_noreplace_plain",
+                  "gather_rows": "gather_rows_plain", "percentile_z": "percentile_plain",
+                  "compute_votes_native": "compute_votes_plain",
+                  "points_in_boxes_native": "points_in_boxes_plain",
+                  "greedy_nms_native": "greedy_nms_plain"}
+# the marker kernels that open a profile's window (torch.cuda._sleep, each
+# spinning about 0.5 us): a profile can drop the device spans at the head of
+# its window (up to 25 in the multiview phase's profiles on an H100), so the window
+# opens at the last marker's span, after the host has waited for them all
+PROFILE_MARKERS, PROFILE_MARKER_CYCLES = 128, 1_000
 # the kernels whose device time the forward's profile reports, by kernel name
 PROFILED = {"fps": "fps_kernel", "ball_query": "ball_query_kernel",
             "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel"}
@@ -884,35 +910,80 @@ def fps_launch_report(events):
     return report
 
 
+def runtime_calls(events, kinds=("LaunchKernel", "Memcpy")):
+    """The CPU-side CUDA runtime calls of a profile that start device work
+    (kernel launches and copies), in time order."""
+    return sorted((e for e in events if e.device_type == DeviceType.CPU
+                   and any(k in e.name for k in kinds)), key=lambda e: e.time_range.start)
+
+
 def device_profile(fn, want, tries=3):
     """One call of ``fn`` under torch.profiler: the device's busy time (the
     union of its kernel and copy spans), their count, and the kernels with
-    the most device time. Each PROFILED kernel's spans must number the
-    launches ``fn`` made (``want``; ``fn`` checks its launch counts); a
-    profile that lost a span is taken again, up to ``tries`` times, and if
-    none is complete no busy time is reported. An incomplete profile logs,
-    for each FPS launch, whether its CPU-side launch call and its device
-    span are in the trace."""
+    the most device time.
+
+    The window opens with PROFILE_MARKERS marker kernels
+    (``torch.cuda._sleep``) launched on the stream just before ``fn()`` and
+    waited for; only the runtime calls after the markers', and the device
+    spans after the last marker's span, count (``markers_lost``: the markers
+    whose spans the profile dropped). A profile is complete when the last
+    marker has its span, every kernel launch
+    and every copy ``fn`` made (a runtime call and its device span share a
+    correlation id) has its span, the host-to-device copies among them
+    included, and each PROFILED kernel's spans number the launches ``fn``
+    made (``want``; ``fn`` checks its launch counts). An incomplete profile
+    is taken again, up to ``tries`` times, and logs the calls that lost
+    their spans (the runtime call, the op that made it and, for FPS, its
+    site); if none is complete, no busy time is reported and the result
+    names what each try lost."""
+    lost_by_try = []
     for attempt in range(tries):
         with fps_sites(), profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA]) as p:
+            with torch.profiler.record_function("profile_window_marker"):
+                for _ in range(PROFILE_MARKERS):
+                    torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        events = p.events()
+        device = {e.id: e for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)}
+        marker = next(e for e in events if e.name == "profile_window_marker"
+                      and e.device_type == DeviceType.CPU)
+        calls = runtime_calls(events)
+        marker_calls = [c for c in calls if c.thread == marker.thread
+                        and marker.time_range.start <= c.time_range.start <= marker.time_range.end]
+        # the window opens at the last marker's span: it must be there
+        marker_span = device.get(marker_calls[-1].id) if marker_calls else None
+        head_lost = sum(c.id not in device for c in marker_calls)
+        window = [c for c in calls if c.time_range.start > marker.time_range.end]
+        lost = [{"call": c.name, "op": c.cpu_parent.name if c.cpu_parent else None}
+                for c in window if c.id not in device]
+        copies = [c for c in window if "Memcpy" in c.name]
+        htod = [device[c.id] for c in copies if c.id in device and "HtoD" in device[c.id].name]
+        opened = marker_span.time_range.end if marker_span is not None else float("inf")
         # kernels and copies; not the ranges that annotate them (the
         # optimizer's step is one)
-        events = p.events()
-        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                       if e.device_type == DeviceType.CUDA
-                       and not getattr(e, "is_user_annotation", False))
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in device.values()
+                       if e.time_range.start >= opened)
         counted = {k: sum(pat in name for _, _, name in spans) for k, pat in PROFILED.items()}
-        if counted == want:
+        copy_counts = {"copy_calls": len(copies), "copy_spans": sum(c.id in device for c in copies),
+                       "htod_spans": len(htod)}
+        if marker_span is not None and not lost and counted == want:
             break
-        log("profile", incomplete=True, kernel_spans=counted, launches=want,
-            device_spans=len(spans), fps_launches=fps_launch_report(events))
+        lost_by_try.append({"marker_span": marker_span is not None, "lost": lost[:12],
+                            "markers_lost": head_lost, "lost_calls": len(lost),
+                            "kernel_spans": counted})
+        log("profile", incomplete=True, attempt=attempt, marker_span=marker_span is not None,
+            markers_lost=head_lost, lost_calls=len(lost), lost=lost[:12], kernel_spans=counted,
+            launches=want,
+            device_spans=len(spans), window_calls=len(window), **copy_counts,
+            fps_launches=fps_launch_report(events))
     else:
-        return {"device_busy": f"not measured: {tries} profiles each lost a kernel span",
-                "kernel_spans": counted, "launches": want}
+        return {"device_busy": f"not measured: each of {tries} profiles lost spans",
+                "lost_by_try": lost_by_try, "kernel_spans": counted, "launches": want}
     busy_us, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         if e > end:
@@ -923,9 +994,131 @@ def device_profile(fn, want, tries=3):
     ours = {k: sum(t for name, t in by_name.items() if pat in name) / 1e3
             for k, pat in PROFILED.items()}
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "device_spans": len(spans), "kernel_spans": counted,
-            "incomplete_profiles": attempt, "kernel_device_ms": ours,
+            "device_spans": len(spans), "kernel_spans": counted, "window_calls": len(window),
+            **copy_counts, "markers_lost": head_lost, "incomplete_profiles": attempt,
+            "lost_by_try": lost_by_try,
+            "kernel_device_ms": ours,
             "top_device_ms": [[name[:90], t / 1e3] for name, t in top]}
+
+
+def host_cpu():
+    """The host's CPU as ``lscpu`` gives it (vendor, model name, family and
+    model number: a virtual machine may report the name as unknown) and
+    its logical CPUs."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    fields = dict(ln.split(":", 1) for ln in out.splitlines() if ":" in ln)
+    return {k: fields.get(k, "not reported").strip()
+            for k in ("Vendor ID", "Model name", "CPU family", "Model")} | {
+        "logical_cpus": os.cpu_count()}
+
+
+def host_inputs(rng):
+    """One scene's worth of each binding's inputs, as the grid and the train
+    CLI give them: a 52,000-point room of 6 x 6 x 3 m whose floor lies near
+    z = 0, 40,000 of its points drawn, ~30 instances, 256 proposal boxes of
+    0.3-2 m with scores and 18 classes."""
+    n, k = HOST_SCENE_POINTS, HOST_DRAWN
+    xyz = rng.rand(n, 3) * [6.0, 6.0, 3.0]
+    xyz[: n // 3, 2] = rng.randn(n // 3) * 0.01          # the floor
+    ins = rng.randint(0, HOST_INSTANCES, n)
+    sem = rng.randint(0, 41, n)
+    idx = rng.choice(n, k, replace=False)
+    cen = rng.rand(HOST_BOXES, 3) * [6.0, 6.0, 3.0]
+    size = 0.3 + rng.rand(HOST_BOXES, 3) * 1.7
+    lo, hi = (cen - size / 2).astype(np.float32), (cen + size / 2).astype(np.float32)
+    score = rng.rand(HOST_BOXES).astype(np.float32)
+    cls = rng.randint(0, 18, HOST_BOXES).astype(np.float64)
+    pc = xyz[idx].astype(np.float32)
+    return {
+        "choice_noreplace_native": lambda: (n, k, np.random.RandomState(7)),
+        "gather_rows f32": lambda: (np.ascontiguousarray(np.c_[xyz, xyz[:, 2]], np.float32), idx),
+        "gather_rows f64": lambda: (np.ascontiguousarray(np.c_[xyz, xyz[:, 2]]), idx),
+        "percentile_z": lambda: (xyz[:, 2], 0.99),
+        "compute_votes_native": lambda: (xyz, ins, sem, ScannetDatasetConfig().nyu40ids),
+        "greedy_nms_native": lambda: (lo.astype(np.float64), hi.astype(np.float64), cls,
+                                      np.argsort(score), 0.25, 1e-8),
+        "points_in_boxes_native": lambda: (pc, lo, hi, 5),
+    }
+
+
+def host_equal(a, b):
+    if isinstance(a, tuple):
+        return all(host_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    return a == b
+
+
+def phase_host():
+    """The host library (``csrc/spacap_host.cpp`` through ``data/native.py``):
+    its build at first use, then each binding against its plain numpy
+    version at the grid's and the train CLI's shapes (HOST_SCENE_POINTS,
+    HOST_DRAWN, HOST_INSTANCES, HOST_BOXES): equal under ``==`` (the choice
+    also in the state it leaves: the next draws agree), and HOST_RUNS timed
+    calls of each, library and plain in turns, as host ms. Also the floor's
+    distance from np.percentile in ulps."""
+    compiled = not any(_build.BUILD_DIR.glob("libspacap_host-*.so"))
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    inputs = host_inputs(np.random.RandomState(0))
+    rows, bad = {}, []
+    for name, make in inputs.items():
+        binding = name.split()[0]
+        lib_fn, plain_fn = getattr(native, binding), getattr(native, PLAIN_BINDINGS[binding])
+        a, b = make(), make()
+        got, want = lib_fn(*a), plain_fn(*b)
+        equal = host_equal(got, want)
+        if binding == "choice_noreplace_native":
+            equal = equal and host_equal(a[2].randn(5), b[2].randn(5))
+        times = {"library": [], "plain": []}
+        for i in range(HOST_RUNS):
+            for leg in (("library", "plain") if i % 2 == 0 else ("plain", "library")):
+                args = make()
+                fn = lib_fn if leg == "library" else plain_fn
+                t0 = time.perf_counter()
+                fn(*args)
+                times[leg].append((time.perf_counter() - t0) * 1e3)
+        rows[name] = {"equal": equal, "library_ms": float(np.median(times["library"])),
+                      "plain_ms": float(np.median(times["plain"])),
+                      "library_ms_all": times["library"], "plain_ms_all": times["plain"]}
+        if not equal:
+            bad.append(name)
+    z = inputs["percentile_z"]()[0]
+    floor, ref = native.percentile_z(z, 0.99), float(np.percentile(z, 0.99))
+    log("host", cpu=host_cpu(), build_s=build_s, compiled_here=compiled,
+        library=os.path.basename(str(_build.host_build())), flags=_build.HOST_FLAGS,
+        shapes={"scene_points": HOST_SCENE_POINTS, "drawn": HOST_DRAWN,
+                "instances": HOST_INSTANCES, "boxes": HOST_BOXES}, runs=HOST_RUNS,
+        floor_minus_np_percentile_ulps=(floor - ref) / float(np.spacing(abs(ref))),
+        bindings=rows)
+    if bad:
+        raise AssertionError(f"host bindings differ from their plain versions: {bad}")
+    return rows
+
+
+@contextlib.contextmanager
+def host_leg(leg, calls=None):
+    """The ``library`` leg runs the host library; the ``plain`` leg puts each
+    binding's plain numpy version in its place on ``data/native.py`` (the
+    data layer and the detection eval call them through the module).
+    ``calls`` (a dict) counts each binding's calls in either leg."""
+    real = {name: getattr(native, name) for name in PLAIN_BINDINGS}
+
+    def counted(name, fn):
+        def run(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return run
+
+    for name, plain in PLAIN_BINDINGS.items():
+        fn = real[name] if leg == "library" else getattr(native, plain)
+        setattr(native, name, counted(name, fn) if calls is not None else fn)
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(native, name, fn)
 
 
 def padded_vocabulary(anns):
@@ -993,9 +1186,12 @@ def phase_mul_eval(forward_scenes_per_s):
     the grid over
     141 scenes x MUL_EVAL_SEEDS seeds, cold (a fresh dataset each repeat),
     as bench.py times it: rows over the wall time of the whole call, the
-    median of MUL_EVAL_REPEATS, with each repeat's phases. The first
-    repeat is the counted run (every count set to 0 just before). Returns
-    its launches."""
+    median of MUL_EVAL_REPEATS, with each repeat's phases. Each repeat runs
+    two host legs in turns, the host library and its plain numpy versions
+    (``host_leg``), whose rows must equal the first repeat's; each leg's
+    rows/s, ``table_s``, ``launch_s`` and ``post_s`` are logged. The first
+    repeat's library leg is the counted run (every count set to 0 just
+    before). Returns its launches."""
     cfg = ModelConfig()
     model = init_spacap(cfg, seed=0, device=DEV)
     with torch.no_grad():
@@ -1088,37 +1284,57 @@ def phase_mul_eval(forward_scenes_per_s):
 
         corpus, organized = prepare_corpus(full_anns), organize_annotations(full_anns)
         seeds = list(range(MUL_EVAL_SEEDS))
-        rps, repeats = [], []
+        rps = {"library": [], "plain": []}
+        repeats = {"library": [], "plain": []}
+        want_rows = None
         for rep in range(MUL_EVAL_REPEATS):
-            ds, _ = mul_eval_dataset(anns, store, vocab, MUL_EVAL_SCENES)
-            if rep == 0:
-                for k in KERNELS.values():
-                    k.launches = 0
-            timing = {}
-            t0 = time.perf_counter()
-            rows = mul_eval_grid(counted_step(grid_step, per_forward), model, ds, vocab, dc,
-                                 corpus, organized, seeds, B, num_workers=8,
-                                 score_workers=min(8, len(seeds)), timing_out=timing,
-                                 device=DEV)
-            total_s = time.perf_counter() - t0
-            if rep == 0:
-                launches = {k: f.launches for k, f in KERNELS.items()}
-            forwards = forwards_ok(f"grid repeat {rep}")
-            bad = [r for r in rows if not all(np.isfinite(v) for v in r.values())]
-            if len(rows) != len(seeds) or bad:
-                raise AssertionError(f"grid rows: {len(rows)}, non-finite {bad}")
-            rps.append(MUL_EVAL_SCENES * len(seeds) / total_s)
-            repeats.append(dict(timing, total_s=total_s, rows_per_s=rps[-1]))
-            log("mul_eval", repeat=rep, scenes=MUL_EVAL_SCENES, seeds=len(seeds), batch=B,
-                forwards=forwards, rows_per_s=rps[-1], total_s=total_s, phases=timing,
-                rows=rows)
-    med = int(np.argsort(rps)[len(rps) // 2])
-    phases = repeats[med]
-    log("mul_eval", mul_eval_e2e_rows_per_sec=float(np.median(rps)), rows_per_sec_all=rps,
-        scenes=MUL_EVAL_SCENES, seeds=MUL_EVAL_SEEDS, repeats=MUL_EVAL_REPEATS, batch=B,
-        num_points=cfg.num_points, vocab_size=cfg.vocab_size,
-        decode_dtype=cfg.eval_decode_dtype, min_iou=EVAL_MIN_IOU, phases=phases,
-        grid_launch_ms_per_forward=phases["launch_s"] / phases["forwards"] * 1e3,
+            # the host legs in turns: the library, then the plain versions
+            # swapped in (and the other way round on odd repeats)
+            for leg in ("library", "plain") if rep % 2 == 0 else ("plain", "library"):
+                ds, _ = mul_eval_dataset(anns, store, vocab, MUL_EVAL_SCENES)
+                counted = rep == 0 and leg == "library"
+                if counted:
+                    for k in KERNELS.values():
+                        k.launches = 0
+                timing, host_calls = {}, {}
+                with host_leg(leg, host_calls):
+                    t0 = time.perf_counter()
+                    rows = mul_eval_grid(counted_step(grid_step, per_forward), model, ds, vocab,
+                                         dc, corpus, organized, seeds, B, num_workers=8,
+                                         score_workers=min(8, len(seeds)), timing_out=timing,
+                                         device=DEV)
+                    total_s = time.perf_counter() - t0
+                if counted:
+                    launches = {k: f.launches for k, f in KERNELS.items()}
+                forwards = forwards_ok(f"grid repeat {rep}, {leg}")
+                bad = [r for r in rows if not all(np.isfinite(v) for v in r.values())]
+                if len(rows) != len(seeds) or bad:
+                    raise AssertionError(f"grid rows: {len(rows)}, non-finite {bad}")
+                if want_rows is None:
+                    want_rows = rows
+                elif rows != want_rows:
+                    raise AssertionError(f"grid repeat {rep}, {leg} leg: rows {rows} differ "
+                                         f"from the first repeat's {want_rows}")
+                rps[leg].append(MUL_EVAL_SCENES * len(seeds) / total_s)
+                repeats[leg].append(dict(timing, total_s=total_s, rows_per_s=rps[leg][-1],
+                                         host_calls=host_calls))
+                log("mul_eval", repeat=rep, leg=leg, scenes=MUL_EVAL_SCENES, seeds=len(seeds),
+                    batch=B, forwards=forwards, rows_per_s=rps[leg][-1], total_s=total_s,
+                    phases=timing, host_calls=host_calls, rows=rows)
+    med = int(np.argsort(rps["library"])[len(rps["library"]) // 2])
+    phases = repeats["library"][med]
+    legs = {leg: {"rows_per_s": float(np.median(rps[leg])),
+                  **{k: float(np.median([r[k] for r in repeats[leg]]))
+                     for k in ("table_s", "launch_s", "post_s", "load_s", "fetch_s",
+                               "score_s", "total_s")},
+                  "host_calls": repeats[leg][0]["host_calls"]} for leg in rps}
+    log("mul_eval", host_legs=legs, rows_equal_across_legs=True,
+        library_over_plain_rows_per_s=legs["library"]["rows_per_s"] / legs["plain"]["rows_per_s"])
+    log("mul_eval", mul_eval_e2e_rows_per_sec=float(np.median(rps["library"])),
+        rows_per_sec_all=rps["library"], scenes=MUL_EVAL_SCENES, seeds=MUL_EVAL_SEEDS,
+        repeats=MUL_EVAL_REPEATS, batch=B, num_points=cfg.num_points,
+        vocab_size=cfg.vocab_size, decode_dtype=cfg.eval_decode_dtype, min_iou=EVAL_MIN_IOU,
+        phases=phases, grid_launch_ms_per_forward=phases["launch_s"] / phases["forwards"] * 1e3,
         alone_launch_ms=launch_ms[1:], alone_forward_ms=forward_ms[1:],
         eval_forward_scenes_per_s=forward_scenes_per_s,
         launches=launches, meteor_is_exact=meteor.is_exact)
@@ -1738,6 +1954,8 @@ def phase_multiview(default_forward_scenes_per_s, default_train):
         summary[name] = {"forward_s": med, "scenes_per_s": B / med,
                          "device_busy_ms": prof.get("device_busy_ms"),
                          "device_spans": prof.get("device_spans"),
+                         "markers_lost": prof.get("markers_lost"),
+                         "htod_spans": prof.get("htod_spans"),
                          "top_device_ms": prof.get("top_device_ms", [])[:5],
                          "forward_s_all": times[name]}
     log("multiview_eval_forward", batch=B, num_points=cfg.num_points, input_feature_dim=dim,
@@ -1951,6 +2169,43 @@ def check_visualize(run_root):
     return counts
 
 
+def cli_host_legs(calls, snap, common):
+    """The train CLI's sampled step and fetch with the host library and with
+    its plain numpy versions swapped in (``host_leg``), in turns: plain,
+    library, each a 1-epoch run of ``common`` without validation. The legs
+    must draw the same batches in the same order, and their first losses
+    agree (the items are equal bit for bit)."""
+    legs = {}
+    for leg in ("plain", "library"):
+        host_calls = {}
+        t0 = time.perf_counter()
+        with host_leg(leg, host_calls):
+            solver = train_cli.main(common + ["--epoch", "1", "--val_step", "1000000",
+                                              "--tag", f"host_{leg}"])
+        wall_s = time.perf_counter() - t0
+        snap.check(solver)
+        steps = calls.take("train_step")
+        calls.calls = [c for c in calls.calls if c["kind"] != "val_forward"]
+        with open(os.path.join(solver.root, "all_scalars.json")) as f:
+            loss = [v for _, _, v in json.load(f)["train/loss"]]
+        legs[leg] = {"wall_s": wall_s, "steps": len(steps),
+                     "median_step_ms": float(np.median(solver.timing["step"])) * 1e3,
+                     "step_samples": len(solver.timing["step"]),
+                     "mean_fetch_ms": float(np.mean(solver.timing["fetch"])) * 1e3,
+                     "first_loss": loss[0], "host_calls": host_calls,
+                     "batches": [c["dataset_idx"] for c in steps]}
+    same = legs["plain"]["batches"] == legs["library"]["batches"]
+    close = abs(legs["plain"]["first_loss"] - legs["library"]["first_loss"]) <= (
+        CLI_LEG_LOSS_RTOL * abs(legs["library"]["first_loss"]))
+    log("cli", host_legs={leg: {k: v for k, v in d.items() if k != "batches"}
+                          for leg, d in legs.items()}, same_batches=same,
+        library_over_plain_step_ms=legs["library"]["median_step_ms"]
+        / legs["plain"]["median_step_ms"])
+    if not same or not close:
+        raise AssertionError(f"host legs differ: same batches {same}, first losses "
+                             f"{legs['plain']['first_loss']} / {legs['library']['first_loss']}")
+
+
 def phase_cli():
     """The port's command lines on the card at the default ModelConfig's
     width (40,000 points, 256 proposals, 6+6 layers, d_ff 2048, B = 8, the
@@ -1969,7 +2224,8 @@ def phase_cli():
     (these three and the grid on a copy of the checkpoint with its
     objectness-1 logit raised by 2, as the mul_eval phase raises it for
     random weights, so that candidates exist); then the overfit gate at
-    the JAX package's CI settings. Every count is set to 0 just before the
+    the JAX package's CI settings. After the resume, the train CLI's host
+    legs (``cli_host_legs``). Every count is set to 0 just before the
     train run and read after the last eval run; returns those launches."""
     with tempfile.TemporaryDirectory(prefix="cli_") as root, CliCalls() as calls, \
             SnapshotCheck() as snap:
@@ -2028,6 +2284,7 @@ def phase_cli():
         # model_last after each of the 3 epochs; model at each new best
         if snap.checked.count("model_last.ckpt") != 3 or "model.ckpt" not in snap.checked:
             raise AssertionError(f"checkpoints checked: {snap.checked}")
+        cli_host_legs(calls, snap, common)
 
         run_root = os.path.join(out, run)
         ckpt = load_checkpoint(os.path.join(run_root, "model.ckpt"))
@@ -2376,6 +2633,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log("build", seconds=time.perf_counter() - t0, ptxas=_build.ptxas_info())
+    phase_host()
     if "--ranks" in sys.argv:
         ranks = int(sys.argv[sys.argv.index("--ranks") + 1])
         if torch.cuda.device_count() < ranks:

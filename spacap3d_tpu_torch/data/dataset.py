@@ -12,9 +12,8 @@ package's changes to the reference:
   * vote labels from vectorized per-instance segment min/max.
 
 The subsample, the row gathers, the floor percentile and the votes run
-their numpy versions, which the JAX package's optional host library
-reproduces bit for bit: items are equal whichever path the JAX package
-took.
+in the port's host library (``data/native.py``), as the JAX package runs
+them in its own: items are equal to the JAX package's bit for bit.
 
 Expected on-disk scene format is the reference preprocessing output
 (``<scene>_aligned_vert.npy``, ``_ins_label``, ``_sem_label``,
@@ -28,15 +27,20 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-from spacap3d_tpu_torch.config import GT_VOTE_FACTOR, MAX_NUM_OBJ, MEAN_COLOR_RGB, DataConfig
+from spacap3d_tpu_torch.config import MAX_NUM_OBJ, MEAN_COLOR_RGB, DataConfig
+from spacap3d_tpu_torch.data import native
 from spacap3d_tpu_torch.data.scannet_config import ScannetDatasetConfig
 from spacap3d_tpu_torch.data.vocabulary import Vocabulary
 
 
 def random_sampling(n_points: int, num_sample: int, rng: np.random.RandomState):
     """Index choice matching utils/pc_utils.py:32-40 (replace only when
-    fewer points than samples)."""
-    return rng.choice(n_points, num_sample, replace=n_points < num_sample)
+    fewer points than samples). The no-replace path (scenes have at least
+    ``num_points``) runs numpy's MT19937 shuffle in the host library,
+    advancing ``rng`` as ``rng.choice`` would."""
+    if n_points < num_sample:
+        return rng.choice(n_points, num_sample, replace=True)
+    return native.choice_noreplace_native(n_points, num_sample, rng)
 
 
 def rot_matrix(axis: int, angle: float) -> np.ndarray:
@@ -189,7 +193,7 @@ class ScanReferDataset:
             # NOTE: 0.99 is the 0.99th PERCENTILE (not 99th) — a reference
             # quirk (lib/dataset.py:330-333) reproduced deliberately; it
             # effectively picks (near) the lowest z as the floor height.
-            floor = float(np.percentile(np.asarray(point_cloud[:, 2], np.float64), 0.99))
+            floor = native.percentile_z(point_cloud[:, 2], 0.99)
             point_cloud = np.concatenate(
                 [point_cloud, (point_cloud[:, 2] - floor)[:, None]], axis=1
             )
@@ -241,7 +245,7 @@ class ScanReferDataset:
         choices = random_sampling(full_pc.shape[0], self.cfg.num_points, rng)
         item = dict(template)
         if with_points:
-            item["point_clouds"] = full_pc[choices].astype(np.float32)
+            item["point_clouds"] = native.gather_rows(full_pc, choices).astype(np.float32)
         else:
             dt = (np.uint16 if full_pc.shape[0] <= np.iinfo(np.uint16).max
                   else np.int32)
@@ -274,11 +278,13 @@ class ScanReferDataset:
 
         point_cloud = self._assemble_full_cloud(scene)
         choices = random_sampling(point_cloud.shape[0], cfg.num_points, rng)
-        point_cloud = point_cloud[choices]
+        point_cloud = native.gather_rows(point_cloud, choices)
         if self.split == "train":
             # only the (train-only) vote computation consumes these
-            instance_labels = np.asarray(scene.instance_labels, np.int64)[choices]
-            semantic_labels = np.asarray(scene.semantic_labels, np.int64)[choices]
+            instance_labels = native.gather_rows(
+                np.asarray(scene.instance_labels, np.int64), choices)
+            semantic_labels = native.gather_rows(
+                np.asarray(scene.semantic_labels, np.int64), choices)
 
         bboxes = scene.instance_bboxes
         num_bbox = min(bboxes.shape[0], MAX_NUM_OBJ)
@@ -330,9 +336,8 @@ class ScanReferDataset:
         # transform: skipping consumes no RNG, so the point subsample
         # stays bit-identical to a votes-on build.
         if self.split == "train":
-            point_votes, point_votes_mask = compute_votes(
-                point_cloud[:, :3], instance_labels, semantic_labels, dc
-            )
+            point_votes, point_votes_mask = native.compute_votes_native(
+                point_cloud[:, :3], instance_labels, semantic_labels, dc.nyu40ids)
         else:
             point_votes = np.zeros((len(point_cloud), 9))
             point_votes_mask = np.zeros(len(point_cloud))
@@ -439,28 +444,3 @@ def _swap02(mat: np.ndarray) -> np.ndarray:
     out[mat == 0] = 2
     out[mat == 2] = 0
     return out
-
-
-def compute_votes(xyz: np.ndarray, instance_labels: np.ndarray,
-                  semantic_labels: np.ndarray, dc: ScannetDatasetConfig):
-    """Vectorized GT vote computation (replaces the python instance loop of
-    reference lib/dataset.py:421-430): for every point of a detection-class
-    instance, the vote is (instance AABB center - point), tiled x3."""
-    n = xyz.shape[0]
-    votes = np.zeros((n, 3))
-    mask = np.zeros(n)
-    ids, first_idx, inverse = np.unique(
-        instance_labels, return_index=True, return_inverse=True
-    )
-    k = len(ids)
-    mins = np.full((k, 3), np.inf)
-    maxs = np.full((k, 3), -np.inf)
-    np.minimum.at(mins, inverse, xyz)
-    np.maximum.at(maxs, inverse, xyz)
-    centers = 0.5 * (mins + maxs)
-    # the instance's semantic label = label of its first point (:419)
-    valid_inst = np.isin(semantic_labels[first_idx], dc.nyu40ids)
-    point_valid = valid_inst[inverse]
-    votes[point_valid] = centers[inverse[point_valid]] - xyz[point_valid]
-    mask[point_valid] = 1.0
-    return np.tile(votes, (1, GT_VOTE_FACTOR)), mask

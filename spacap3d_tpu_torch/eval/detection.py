@@ -5,13 +5,16 @@ Host-side numpy implementations matching the reference decision-for-
 decision (utils/nms.py:39-150, lib/ap_helper.py:44-250,
 utils/eval_det.py:21-253), with the JAX package's two redesigns:
 
-  * ``remove_empty_box`` uses a vectorized point-in-AABB test instead of
-    the reference's per-box scipy Delaunay hull test
+  * ``remove_empty_box`` uses a point-in-AABB count instead of the
+    reference's per-box scipy Delaunay hull test
     (model_util_scannet.py:13-22). Equivalent because predicted boxes are
     axis-aligned (heading is always 0 on ScanNet), where the convex hull
     of the 8 corners IS the AABB — and orders of magnitude faster.
   * greedy NMS extracts per-box min/max corners vectorized rather than in
     python loops.
+
+The greedy NMS and the in-box counts run in the port's host library
+(``data/native.py``), as the JAX package runs them in its own.
 
 Greedy NMS semantics preserved exactly: sort ascending by score, pop the
 highest, suppress others with IoU > threshold (and same class for
@@ -22,6 +25,8 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from spacap3d_tpu_torch.data import native
 
 
 def softmax_np(x: np.ndarray) -> np.ndarray:
@@ -50,29 +55,12 @@ def box3d_iou_np(corners1: np.ndarray, corners2: np.ndarray) -> float:
 def _greedy_nms(lo, hi, score, thresh, cls=None, union_eps=0.0):
     # float64 throughout — the reference's box arrays are np.zeros
     # (float64) so its IoUs are double precision (utils/nms.py:71-150).
-    # The full pairwise-overlap matrix in one vectorized pass, then the
-    # greedy loop over it; the JAX package's optional host library computes
-    # the same IoUs per pick with the same arithmetic.
-    lo = np.ascontiguousarray(lo, np.float64)
-    hi = np.ascontiguousarray(hi, np.float64)
+    # Per pick, the IoUs with the reference's formula and op order, in C++
+    # (no K x K matrix, no python loop per pick).
     order = np.argsort(score)  # ascending; pop from the end
-    area = np.prod(hi - lo, axis=-1)
-    l = np.maximum(lo[:, None, :], lo[None, :, :])
-    h = np.minimum(hi[:, None, :], hi[None, :, :])
-    inter = np.prod(np.maximum(h - l, 0), axis=-1)
-    o_mat = inter / (area[:, None] + area[None, :] - inter + union_eps)
-    if cls is not None:
-        cls64 = np.ascontiguousarray(cls, np.float64)
-        o_mat = o_mat * (cls64[:, None] == cls64[None, :])
-    pick = []
-    while order.size:
-        i = int(order[-1])
-        order = order[:-1]
-        pick.append(i)
-        if not order.size:
-            break
-        order = order[o_mat[i, order] <= thresh]
-    return pick
+    cls64 = None if cls is None else np.ascontiguousarray(cls, np.float64)
+    picks = native.greedy_nms_native(lo, hi, cls64, order, thresh, union_eps)
+    return [int(i) for i in picks]
 
 
 def nms_2d_faster(boxes: np.ndarray, overlap_threshold: float, old_type=False):
@@ -202,11 +190,9 @@ def _pred_mask(ep: Dict[str, np.ndarray], config: Dict):
         else:
             pc = np.asarray(ep["point_clouds"])[:, :, :3]    # (B, N, 3)
             for i in range(bsize):
-                inside = (
-                    (pc[i][None, :, :] >= box_lo[i][:, None, :])
-                    & (pc[i][None, :, :] <= box_hi[i][:, None, :])
-                ).all(-1)                                     # (K, N)
-                nonempty[i] = inside.sum(-1) >= 5             # "< 5 points" removed
+                # only counts >= 5 matter: the cap lets a box stop early
+                counts = native.points_in_boxes_native(pc[i], box_lo[i], box_hi[i], cap=5)
+                nonempty[i] = counts >= 5                     # "< 5 points" removed
 
     pred_mask = np.zeros((bsize, k))
     thresh = config["nms_iou"]

@@ -1,18 +1,22 @@
-"""Builds the CUDA kernels in ``csrc/`` and loads them with ctypes.
+"""Builds the CUDA kernels in ``csrc/`` and the host library
+``csrc/spacap_host.cpp``, and loads them with ctypes.
 
 ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (all sources at once,
 one process each) and links one shared library with a plain C interface
 into ``spacap3d_tpu_torch/_build/``, named by a hash of the sources and
-flags so that an edited source rebuilds. Nothing here runs at import time:
-the first CUDA call to a kernel wrapper builds and loads the library, and
-a failed build raises.
+flags so that an edited source rebuilds. ``g++`` compiles the host
+library the same way (``host_build``; no ``nvcc`` needed, so it builds on
+any machine with a C++ compiler). Nothing here runs at import time: the
+first CUDA call to a kernel wrapper, or the first call to a host binding
+(``data/native.py``), builds and loads its library, and a failed build
+raises with the compiler's log.
 
-Processes that start together (the ranks of a process group) build once:
-``library()`` checks for the library and compiles it under an exclusive
-``fcntl.flock`` on ``_build/build.lock``, so the first builds and the
-others wait, then load the same file. Objects, logs and the library are
-written under per-process names and renamed into place, so a reader never
-sees half of one.
+Processes that start together (the ranks of a process group, the test
+workers) build once: each build checks for its library and compiles it
+under an exclusive ``fcntl.flock`` on a lock file in ``_build/``, so the
+first builds and the others wait, then load the same file. Objects, logs
+and the library are written under per-process names and renamed into
+place, so a reader never sees half of one.
 """
 from __future__ import annotations
 
@@ -30,6 +34,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_SOURCE = CSRC / "spacap_host.cpp"
+# no -march: the library is the same on every x86-64 host, and no
+# multiply-add is contracted (the one that matters is an explicit std::fma)
+HOST_FLAGS = ["-O3", "-ffp-contract=off", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
 _lib = None
 
@@ -39,6 +47,13 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _cxx() -> str:
+    cxx = shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("g++ not found: the host library cannot be built")
+    return cxx
 
 
 def _sources():
@@ -122,23 +137,48 @@ def ptxas_info() -> dict:
     return info
 
 
-def build() -> Path:
-    """The library's path, built first if it is missing: the check and the
-    compile run under an exclusive lock, so one of several processes that
-    start together builds and the others wait for it."""
-    sources = _sources()
-    lib_path = BUILD_DIR / f"libspacap_kernels-{_digest(sources)}.so"
+def _locked_build(lib_path: Path, lock_name: str, compile_fn) -> Path:
+    """``lib_path``, made by ``compile_fn(lib_path)`` first if it is missing:
+    the check and the compile run under an exclusive lock, so one of
+    several processes that start together builds and the others wait."""
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock:
+    with open(BUILD_DIR / lock_name, "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not lib_path.exists():
-                _compile(lib_path, sources)
+                compile_fn(lib_path)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return lib_path
+
+
+def build() -> Path:
+    """The kernel library's path, built first if it is missing."""
+    sources = _sources()
+    return _locked_build(BUILD_DIR / f"libspacap_kernels-{_digest(sources)}.so",
+                         "build.lock", lambda path: _compile(path, sources))
+
+
+def _compile_host(lib_path: Path) -> None:
+    tmp = BUILD_DIR / f"{lib_path.name}.{os.getpid()}.tmp"
+    res = subprocess.run([_cxx(), *HOST_FLAGS, str(HOST_SOURCE), "-o", str(tmp)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {HOST_SOURCE.name}:\n"
+                           f"{(res.stdout + res.stderr)[-4000:]}")
+    os.replace(tmp, lib_path)
+
+
+def host_build() -> Path:
+    """The host library's path, built first if it is missing; named by a
+    hash of its source and flags."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return _locked_build(BUILD_DIR / f"libspacap_host-{h.hexdigest()[:16]}.so",
+                         "host.lock", _compile_host)
 
 
 def library() -> ctypes.CDLL:

@@ -147,7 +147,7 @@ def main(argv=None):
     from spacap3d_tpu_torch.models import SpaCapNet
     from spacap3d_tpu_torch.parallel.tp import make_tp_mesh, shard_model
     from spacap3d_tpu_torch.train.step import make_attn_dump_step, make_eval_step
-    from spacap3d_tpu_torch.utils.checkpoint import load_checkpoint
+    from spacap3d_tpu_torch.utils.checkpoint import load_model_state_dict
 
     root = os.path.join(args.output_dir, args.folder)
     run_cfg = RunConfig.load(os.path.join(root, "config.json"))
@@ -184,8 +184,8 @@ def main(argv=None):
     ds = ScanReferDataset(eval_list, store, vocab, dc, data_cfg, split="val")
 
     model = SpaCapNet(model_cfg, dc.mean_size_arr)
-    model.load_state_dict(load_checkpoint(os.path.join(root, args.checkpoint))
-                          ["model_state_dict"])
+    # a port checkpoint or one the JAX package wrote
+    model.load_state_dict(load_model_state_dict(os.path.join(root, args.checkpoint)))
     model = model.eval().to(device)
     if args.tp > 1:
         shard_model(model, make_tp_mesh(args.tp))

@@ -179,20 +179,19 @@ def build_configs(args):
 
 def mount_detector(model, path: str):
     """--pretrained_votenet (reference train.py:158-181): a reference .pth
-    loads by name (only the keys it holds); a port .ckpt mounts only the
-    detector (``backbone_net``, ``vgen``, ``proposal``). Returns the number
-    of tensors loaded."""
+    loads by name (only the keys it holds); a port .ckpt, or one the JAX
+    package wrote, mounts only the detector (``backbone_net``, ``vgen``,
+    ``proposal``). Returns the number of tensors loaded."""
     import torch
 
-    from spacap3d_tpu_torch.utils.checkpoint import load_checkpoint
+    from spacap3d_tpu_torch.utils.checkpoint import load_model_state_dict
     from spacap3d_tpu_torch.utils.convert import load_reference_state_dict
 
     if path.endswith(".pth"):
         payload = torch.load(path, map_location="cpu", weights_only=True)
         sd = payload.get("model_state_dict", payload)
         return load_reference_state_dict(model, sd, strict=False)
-    sd = load_checkpoint(path)["model_state_dict"]
-    sd = {k: v for k, v in sd.items() if k.startswith(DETECTOR)}
+    sd = {k: v for k, v in load_model_state_dict(path).items() if k.startswith(DETECTOR)}
     missing = [k for k in model.state_dict() if k.startswith(DETECTOR) and k not in sd]
     if missing:
         raise KeyError(f"{path} lacks detector tensors: {missing[:5]}")

@@ -56,6 +56,8 @@ from spacap3d_tpu_torch.parallel.mesh import group_rank_size
 from spacap3d_tpu_torch.parallel.multihost import allgather_pyobj, process_count, process_index
 from spacap3d_tpu_torch.train.step import make_eval_step, make_optimizer, make_train_step
 from spacap3d_tpu_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint
+from spacap3d_tpu_torch.utils.convert import payload_from_jax
+from spacap3d_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, load_jax_checkpoint
 from spacap3d_tpu_torch.utils.logging import RunLogger, decode_eta
 
 BN_MOMENTUM_INIT = 0.5
@@ -200,7 +202,13 @@ class Solver:
         self.ckpt.save(os.path.join(self.root, name), payload)
 
     def restore(self, path: str):
-        payload = load_checkpoint(path)
+        """Resumes from a port checkpoint, or from one the JAX package wrote
+        (parameters, BN state, Adam moments, step, iter, epoch and best)."""
+        if is_jax_checkpoint(path):
+            payload = payload_from_jax(load_jax_checkpoint(path), self.model, self.optimizer,
+                                       self.scheduler, self.tc.no_detection)
+        else:
+            payload = load_checkpoint(path)
         model_sd, opt_sd = payload["model_state_dict"], payload["optimizer_state_dict"]
         if self.tp_mesh is not None:
             model_sd = tp_mod.shard_state_dict(model_sd, self.tp_mesh, self.model.tp_specs)

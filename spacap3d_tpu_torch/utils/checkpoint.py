@@ -3,6 +3,9 @@
 lib/solver.py:216-225, :556-580: model_last each epoch, model on a new
 best).
 
+``load_model_state_dict`` also reads the JAX package's checkpoints
+(``utils/jax_checkpoint.py``).
+
 ``save`` copies every tensor of the payload to the CPU before it returns,
 so the train loop may go on updating its parameters in place (torch's
 Adam does); only the file write runs on the thread. Files are written to
@@ -80,6 +83,19 @@ class AsyncCheckpointer:
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_model_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The model's state dict from a port checkpoint, or from a JAX-package
+    one (its ``params`` and ``state`` mapped by ``convert.params_from_jax``)."""
+    from spacap3d_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, load_jax_checkpoint
+
+    if is_jax_checkpoint(path):
+        from spacap3d_tpu_torch.utils.convert import params_from_jax
+
+        payload = load_jax_checkpoint(path)
+        return params_from_jax(payload["params"], payload["state"])
+    return load_checkpoint(path)["model_state_dict"]
 
 
 def save_checkpoint_sync(path: str, payload: Dict[str, Any]):

@@ -12,7 +12,6 @@ sets it to 0 where a state dict lacks it.
 """
 from __future__ import annotations
 
-import pickle
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -21,6 +20,7 @@ import torch
 from spacap3d_tpu_torch.device import resolve_device
 from spacap3d_tpu_torch.models.enet import (BLOCK_INDEX, CLASSIFIER_INDEX, STAGE2_3_PLAN, ENet,
                                             init_enet)
+from spacap3d_tpu_torch.utils.jax_checkpoint import load_jax_pickle
 
 _BLOCK_OF_INDEX = {i: name for name, i in BLOCK_INDEX.items()}
 _ASYM_BLOCKS = {f"{stage}_{name}" for stage in ("s2", "s3")
@@ -96,28 +96,13 @@ def enet_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda") -> ENet:
     return model.eval().to(dev)
 
 
-class _NumpyUnpickler(pickle.Unpickler):
-    """Reads pickles of dicts of numpy arrays and nothing else: a pickle that
-    holds ``jax.Array``s would import JAX, which the port does not."""
-
-    def find_class(self, module, name):
-        root = module.split(".")[0]
-        if root in ("jax", "jaxlib"):
-            raise RuntimeError(
-                f"the ENet pickle holds {module}.{name}: the port reads only numpy "
-                "trees; save them with jax.tree_util.tree_map(np.asarray, tree)")
-        if root != "numpy":
-            raise pickle.UnpicklingError(f"the ENet pickle holds {module}.{name}, "
-                                         "not a numpy array")
-        return super().find_class(module, name)
-
-
 def load_enet(path: str = "", device="cuda") -> ENet:
     """The multiview CLIs' ENet: ``path`` empty -> seeded random weights
     (``init_enet``); a ``.pth`` -> a reference-keyed state dict (a
     ``model_state_dict`` payload and a leading ``module.`` are unwrapped);
-    anything else -> a pickle of ``{"params", "state"}`` numpy trees in the
-    JAX package's layout."""
+    anything else -> a pickle of ``{"params", "state"}`` trees of numpy
+    arrays or ``jax.Array``s in the JAX package's layout
+    (``utils/jax_checkpoint.py::load_jax_pickle``)."""
     if not path:
         return init_enet(device=device)
     if path.endswith(".pth"):
@@ -127,7 +112,6 @@ def load_enet(path: str = "", device="cuda") -> ENet:
               for k, v in payload.items()}
         print(f"loaded {len(sd)} ENet tensors")
     else:
-        with open(path, "rb") as f:
-            payload = _NumpyUnpickler(f).load()
+        payload = load_jax_pickle(path)
         sd = enet_params_from_jax(payload["params"], payload["state"])
     return enet_from_state_dict(sd, device)

@@ -10,6 +10,7 @@ import os
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -402,5 +403,28 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     for rel in ("scripts/train.py", "scripts/eval.py", "scripts/overfit_gate.py",
                 "scripts/profile_step.py", "train/solver.py", "utils/checkpoint.py",
                 "parallel/multihost.py", "parallel/mesh.py", "parallel/tp.py",
-                "parallel/mp_dryrun.py"):
+                "parallel/mp_dryrun.py", "data/native.py", "utils/jax_checkpoint.py",
+                "utils/convert.py", "utils/convert_enet.py", "ops/_build.py"):
         assert rel in checked, rel
+
+
+def test_port_host_library_is_the_ports_own():
+    """The host library builds from the port's own source into the port's
+    build directory; no port source (Python, C++ or CUDA) and not
+    ``chip_smoke.py`` names a file under the repo's ``native/`` in code
+    (comments and docstrings aside; the Python sources' strings are held by
+    ``test_port_reads_no_jax_package_file_by_path``)."""
+    from spacap3d_tpu_torch.data import native
+
+    port = Path(_build.__file__).resolve().parent.parent
+    assert _build.HOST_SOURCE.resolve().is_relative_to(port / "csrc")
+    assert Path(native.library()._name).resolve().is_relative_to(port / "_build")
+    repo = port.parent
+    with open(repo / "chip_smoke.py") as f:
+        # its kernels line names the TPU kernels' files in spacap3d_tpu/
+        hits = [x for x in _path_strings(f.read()) if re.search(r"(^|[^\w])native([/\\]|$)", x)]
+    assert not hits, hits
+    include = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+    for src in [*port.glob("csrc/*.cpp"), *port.glob("csrc/*.cu"), *port.glob("csrc/*.cuh")]:
+        for name in include.findall(src.read_text()):
+            assert (src.parent / name).resolve().is_relative_to(port), (src.name, name)
