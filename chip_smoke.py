@@ -15,7 +15,8 @@ builds, also on clouds whose centres fill in the first tile or after
 several, rows at the tile size and one point either side, rows 10 m apart
 with centres no multiple of a block, and ns 1; the decode kernels also at
 cluster sizes 1-4, twice, and on exact-arithmetic inputs: ties, padding,
-empty cluster ranks), drives the eval forward at full width
+empty cluster ranks; the FFN's partial-sum mode at tensor-parallel slices
+of d_ff), drives the eval forward at full width
 (default ModelConfig, B=8, 40,000 points) through ``make_eval_step``,
 unfused and with ``eval_decode_fused`` (the fused decode kernels), checks
 that each forward launched its kernels,
@@ -42,8 +43,10 @@ train CLI's step with the host library and with its plain versions
 of 40,000 points, the multiview + normal configuration's eval forward and
 train step, the multiview CLIs whose packages import; ``[multiview]``
 lines), then the parallel runtimes on ranks that share the card
-(``[parallel]`` lines). Exits non-zero if any phase fails or if CUDA is
-missing. Prints a line per phase, a ``kernels`` JSON line and, last,
+(``[parallel]`` lines; tensor parallelism also with the fused decode, the
+FFN kernel's partial-sum mode on each rank's d_ff slice, which the
+``kernels`` line lists as ``ffn_partial``). Exits non-zero if any phase
+fails or if CUDA is missing. Prints a line per phase, a ``kernels`` JSON line and, last,
 ``{"ok": true, "device": ...}``.
 """
 import contextlib
@@ -81,7 +84,6 @@ from spacap3d_tpu_torch.models.enet import init_enet
 from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.ops.ball_query import launch_ball_query
 from spacap3d_tpu_torch.parallel.mp_dryrun import GRID_MIN_IOU, grid_dataset, launch
-from spacap3d_tpu_torch.parallel.tp import TPMesh, shard_model
 from spacap3d_tpu_torch.scripts import compute_multiview_features as mv_features_cli
 from spacap3d_tpu_torch.scripts import eval as eval_cli
 from spacap3d_tpu_torch.scripts import overfit_gate
@@ -116,16 +118,23 @@ FPS_SHAPES = [(40000, 2048), (1024, 256)]                 # (N, npoint): SA1, ag
 BQ_SHAPES = [(40000, 2048, 0.2, 64), (2048, 1024, 0.4, 32), (1024, 512, 0.8, 16),
              (512, 256, 1.2, 16), (1024, 256, 0.3, 16)]   # (N, m, r, ns): SA1-4, aggregation
 KERNELS = {"fps": ops.furthest_point_sample, "ball_query": ops.ball_query,
-           "generator_argmax": ops.generator_argmax, "ffn": ops.ffn}
+           "generator_argmax": ops.generator_argmax, "ffn": ops.ffn,
+           "ffn_partial": ops.ffn_partial}
 # greedy decode rows B * K = 2048 at d 128: vocab 4528, d_ff 2048
 GEN_SHAPES = [(2048, 4528, True), (2000, 4500, False)]   # (R, vocab, on the main path)
 # (R, d, d_ff, on the main path): the decode's shape, a ragged R, the widest d
 # with a d_ff that is no multiple of the kernel's 64-column chunk, a narrow d
 FFN_SHAPES = [(2048, 128, 2048, True), (2000, 128, 2048, False),
               (2000, 256, 1040, False), (2048, 64, 2048, False)]
+# the FFN's partial-sum mode on one tensor-parallel rank's d_ff slice: tp 2
+# (P3's fused TP forward), tp 4, and a ragged R with a slice of 528 (d_ff
+# 1056 at tp 2: a multiple of 16, not of the 64-column chunk); the weights
+# at the init range of the whole d_ff, as a rank's slice has them
+FFN_PARTIAL_SHAPES = [(2048, 128, 1024, 2048, True), (2048, 128, 512, 2048, False),
+                      (2000, 128, 528, 1056, False)]   # (R, d, slice, d_ff, on the main path)
 D_MODEL = 128
 # a train step's launches: the trunk's FPS and ball query, no decode kernel
-TRAIN_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
+TRAIN_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0, "ffn_partial": 0}
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 # CPU against GPU, one train step at dropout 0, from the same weights and
 # batch. Each loss within 5e-4 of itself (PARITY.md's tolerance) plus 1e-5
@@ -168,7 +177,7 @@ MUL_EVAL_GATE_SCENES, MUL_EVAL_GATE_SEEDS, MUL_EVAL_GATE_IOU = 16, [0, 1], 0.05
 # the overfit gate at the JAX package's CI settings (tests/test_train_e2e.py:
 # 4 scenes, 250 epochs, CIDEr threshold 0.5 at its default min_iou 0.25)
 CLI_TRAIN_SCENES, CLI_VAL_SCENES, CLI_VIS_SCENES = 16, 8, 2
-CLI_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
+CLI_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0, "ffn_partial": 0}
 # the train CLI's host legs draw equal batches, so their first losses agree
 # but for the card's own reductions
 CLI_LEG_LOSS_RTOL = 1e-5
@@ -206,6 +215,17 @@ PARALLEL_TIMEOUT, PARALLEL_COLLECTIVE_S = 300, 120
 PARALLEL_P1_STEPS, PARALLEL_P1_RTOL = 3, 1e-6
 PARALLEL_RTOL, PARALLEL_ATOL = 1e-5, TRAIN_LOSS_ATOL
 PARALLEL_OBJ_ATOL = 1e-5
+# the partial-sum kernel's check: up to 2 hidden values of a row may round
+# to their other bf16 neighbour on the two sides (a value flips only where
+# the first product's reassociation, ~2^-23 d of its terms' sum, straddles a
+# rounding midpoint of h, a few in 10^5; the check logs the outputs that
+# needed this allowance as ``beyond_reassoc``)
+FFN_PARTIAL_FLIPS = 2
+# P3's fused TP eval forward on each rank: the trunk's FPS and ball query, the
+# generator's argmax at each of 31 steps, and each decoder FFN (6 layers x (31
+# steps + the early guide's object token)) as its partial sum on the rank's
+# d_ff slice, none whole
+TP_FUSED_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 31, "ffn": 0, "ffn_partial": 192}
 PARALLEL_GRID_SCENES, PARALLEL_GRID_SEEDS = 16, 4
 # the host phase: each binding of the host library against its plain numpy
 # version at the grid's and the train CLI's shapes (a 52,000-point scene,
@@ -226,7 +246,8 @@ PLAIN_BINDINGS = {"choice_noreplace_native": "choice_noreplace_plain",
 PROFILE_MARKERS, PROFILE_MARKER_CYCLES = 128, 1_000
 # the kernels whose device time the forward's profile reports, by kernel name
 PROFILED = {"fps": "fps_kernel", "ball_query": "ball_query_kernel",
-            "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel"}
+            "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel",
+            "ffn_partial": "ffn_partial_kernel"}
 
 
 def log(phase, **kw):
@@ -570,8 +591,9 @@ def phase_decode_kernels():
     """The fused decode kernels against their plain versions at the main-path
     shapes, a ragged R and vocab, and exact ties; timed beside the plain
     version and cuBLAS's bf16 composite. At the main-path shape the
-    generator kernel also runs at the other cluster sizes 1-4."""
-    results = {"generator_argmax": [], "ffn": []}
+    generator kernel also runs at the other cluster sizes 1-4; the FFN's
+    partial-sum mode at each of its shapes."""
+    results = {"generator_argmax": [], "ffn": [], "ffn_partial": []}
     rng = np.random.RandomState(2)
     d = D_MODEL
     dev = torch.cuda.current_device()
@@ -607,6 +629,7 @@ def phase_decode_kernels():
     gen_exact_case(rng, 1000, [37, 39, 53, 130, 677])
     gen_exact_case(rng, 200, [37, 150], clusters=[4])
     results["ffn"] = ffn_rows(rng)
+    results["ffn_partial"] = ffn_partial_rows(rng)
     return results
 
 
@@ -724,6 +747,125 @@ def ffn_rows(rng):
     return rows
 
 
+def bf16_ints(rng, lo, hi, shape):
+    return torch.from_numpy(rng.randint(lo, hi + 1, shape).astype(np.float32)).to(DEV).bfloat16()
+
+
+def bf16_ulp(v):
+    """The spacing of bf16 values at |v| (8 significant bits), 0 at 0."""
+    v = v.abs()
+    return torch.where(v > 0, torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 8), 0.0)
+
+
+def ffn_partial_exact(rng, r, d, f, cluster):
+    """Exact arithmetic, as ``ffn_exact_case``: x integers in [-2, 2], w1 and
+    w2 in {-1, 0, 1}, b1 integers in [-4, 4]. Every f32 sum is an integer
+    below 2^24, exact in any order, so both sides round the same hidden to
+    bf16 and the kernel's f32 partial must equal the plain version bit for
+    bit: a difference is a layout or epilogue fault, not rounding."""
+    x = bf16_ints(rng, -2, 2, (r, d))
+    w1, b1, w2 = bf16_ints(rng, -1, 1, (f, d)), bf16_ints(rng, -4, 4, (f,)), bf16_ints(
+        rng, -1, 1, (d, f))
+    packed = ops.pack_ffn(w1, b1, w2, bf16_ints(rng, -4, 4, (d,)))   # b2: never read
+    got = ops.ffn_partial(x, packed, cluster=cluster)
+    want = ops.ffn_partial_plain(x, w1, b1, w2)
+    torch.cuda.synchronize()
+    return {"bit_equal": bool(torch.equal(got, want)), "elements_differ": int((got != want).sum()),
+            "max_abs_out": float(want.abs().max())}
+
+
+def ffn_partial_check(x, packed, cluster=None):
+    """The partial-sum kernel against ``ffn_partial_plain``. Both sides
+    multiply the same bf16 operands, whose products are exact in f32, and
+    sum them in other orders. Per output (i, c) the tolerance is
+
+        d_ff 2^-23 S_ic + FFN_PARTIAL_FLIPS max_j ulp(h_ij) |w2_cj|,
+
+    with S_ic = sum_j |h_ij w2_cj| over the plain version's bf16 hidden h
+    and ulp the spacing of bf16 values: the first term bounds two f32 sums
+    of d_ff terms in any order (2^-23 allows the tensor cores' truncating
+    accumulation); the second lets FFN_PARTIAL_FLIPS hidden values of the
+    row round to their other bf16 neighbour, as the first product's own
+    reassociation can move them across a rounding midpoint, each moving
+    y_ic by at most ulp(h_ij) |w2_cj|. The largest tolerance must lie
+    within half a bf16 ulp of the largest output, since the ranks' sum is
+    rounded to bf16 next. Two calls on the same inputs must give the same
+    bits."""
+    got = ops.ffn_partial(x, packed, cluster=cluster)
+    again = ops.ffn_partial(x, packed, cluster=cluster)
+    w1, b1, w2 = packed.w1, packed.b1, packed.w2
+    hid = torch.relu(x.float() @ w1.float().t() + b1.float()).to(x.dtype).float()
+    want = hid @ w2.float().t()
+    reassoc = packed.d_ff * 2.0 ** -23 * (hid.abs() @ w2.float().abs().t())
+    u, w = bf16_ulp(hid), w2.float().abs()
+    flips = FFN_PARTIAL_FLIPS * torch.cat([(u[i:i + 256, None, :] * w).amax(-1)
+                                           for i in range(0, u.shape[0], 256)])
+    tol = reassoc + flips
+    half_ulp = float(bf16_ulp(want.abs().max())) / 2
+    torch.cuda.synchronize()
+    what = f"ffn_partial {[x.shape[0], packed.d, packed.d_ff]} cluster {cluster}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two calls differ")
+    if float(tol.max()) > half_ulp:
+        raise AssertionError(f"{what}: tolerance {float(tol.max())} above half a bf16 ulp of "
+                             f"the largest output ({half_ulp})")
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+        raise AssertionError(f"{what}: kernel != plain beyond the tolerance (max err/tol "
+                             f"{float((err / tol).max())})")
+    return dict(max_abs_err=float(err.max()), max_err_over_tol=float((err / tol).max()),
+                tol_max=float(tol.max()), reassoc_tol_max=float(reassoc.max()),
+                beyond_reassoc=int((err > reassoc).sum()), half_ulp_of_max_out=half_ulp,
+                max_abs_out=float(want.abs().max()),
+                share_not_bit_equal=float((got != want).float().mean()),
+                two_calls_bit_equal=True)
+
+
+def ffn_partial_rows(rng):
+    """The partial-sum kernel at every FFN_PARTIAL_SHAPES shape, at clusters
+    1-4 and the default, on random and on exact-arithmetic inputs; timed
+    beside the plain version and cuBLAS's bf16 composite of the same
+    slice."""
+    ptxas = _build.ptxas_info()
+    dev = torch.cuda.current_device()
+    rows, exact = [], []
+    for r, d, f, f_full, main in FFN_PARTIAL_SHAPES:
+        x = torch.from_numpy(rng.randn(r, d).astype(np.float32)).to(DEV).bfloat16()
+        w1, b1, w2, b2 = ffn_weights(rng, d, f_full)
+        w1, b1, w2 = w1[:f].contiguous(), b1[:f].contiguous(), w2[:, :f].contiguous()
+        packed = ops.pack_ffn(w1, b1, w2, b2)
+        cluster = ops.ffn_default_cluster(dev, r, d, packed.chunks, True)
+        row = ffn_partial_check(x, packed)
+        row.update(
+            shape=[r, d, f], d_ff=f_full, main_path=main, cluster=cluster,
+            **ops.ffn_launch_info(dev, d, packed.chunks, cluster, True),
+            ptxas=next(v for k, v in ptxas.items()
+                       if f"ffn_partial_kernelILi{-(-d // 64)}E" in k),
+            ms=cuda_ms(lambda: ops.ffn_partial(x, packed), reps=20),
+            plain_ms=cuda_ms(lambda: ops.ffn_partial_plain(x, w1, b1, w2), reps=20),
+            library_ms=cuda_ms(lambda: torch.mm(torch.relu(torch.addmm(b1, x, w1.t())), w2.t()),
+                               reps=20),
+            library="composite: addmm -> relu -> mm in bf16")
+        for s in range(1, 5):
+            case = ffn_partial_exact(rng, r, d, f, s)
+            log("kernels", kernel="ffn_partial", case="exact arithmetic", shape=[r, d, f],
+                cluster=s, **case)
+            exact.append(case)
+            row[f"cluster_{s}"] = dict(
+                ffn_partial_check(x, packed, cluster=s),
+                **ops.ffn_launch_info(dev, d, packed.chunks, s, True),
+                ms=cuda_ms(lambda: ops.ffn_partial(x, packed, cluster=s), reps=20))
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 *(row[f"cluster_{s}"]["max_abs_err"] for s in range(1, 5)))
+        row["bound_ms"], row["bound_by"] = bound(
+            4.0 * r * d * f, 2 * (r * d + 2 * f * d + f) + 4 * r * d, PEAK_BF16_FLOPS)
+        log("kernels", kernel="ffn_partial", **row)
+        rows.append(row)
+    if not all(case["bit_equal"] for case in exact):
+        raise AssertionError(f"ffn_partial exact case: kernel != plain: {exact}")
+    return rows
+
+
 def check_outputs(cfg, out):
     lc = out["lang_cap"]
     if tuple(lc.shape) != (B, cfg.num_proposals, cfg.max_des_len + 1):
@@ -805,10 +947,11 @@ def phase_eval_forward():
     n_steps = cfg.max_des_len + 1
     paths = {
         "unfused": {"cfg": cfg, "want": {"fps": 2, "ball_query": 5,
-                                         "generator_argmax": 0, "ffn": 0}},
+                                         "generator_argmax": 0, "ffn": 0, "ffn_partial": 0}},
         "fused": {"cfg": dataclasses.replace(cfg, eval_decode_fused=True),
                   "want": {"fps": 2, "ball_query": 5, "generator_argmax": n_steps,
-                           "ffn": cfg.num_layers * (n_steps + int(cfg.early_guide))}},
+                           "ffn": cfg.num_layers * (n_steps + int(cfg.early_guide)),
+                           "ffn_partial": 0}},
     }
     for p in paths.values():     # the flag travels in the model's config
         p["model"] = init_spacap(p["cfg"], seed=0, device=DEV)
@@ -870,7 +1013,8 @@ def phase_eval_forward():
         fused_minus_unfused_busy_ms=None if None in busy else busy[1] - busy[0])
     return ({"fps": launches["unfused"]["fps"], "ball_query": launches["unfused"]["ball_query"],
              "generator_argmax": launches["fused"]["generator_argmax"],
-             "ffn": launches["fused"]["ffn"]}, summary["unfused"]["scenes_per_s"])
+             "ffn": launches["fused"]["ffn"], "ffn_partial": launches["fused"]["ffn_partial"]},
+            summary["unfused"]["scenes_per_s"])
 
 
 @contextlib.contextmanager
@@ -1198,7 +1342,7 @@ def phase_mul_eval(forward_scenes_per_s):
         model.proposal.proposal[6].bias[1] += 2.0
     grid_step = make_eval_step(cfg, device=DEV, compact=True)
     per_forward = []
-    want = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
+    want = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0, "ffn_partial": 0}
     meteor = Meteor()
     meteor.close()
 
@@ -1917,7 +2061,7 @@ def phase_multiview(default_forward_scenes_per_s, default_train):
 
     # the same scenes through the default input (xyz + height) and through
     # the multiview one, timed in turns
-    want = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0}
+    want = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0, "ffn_partial": 0}
     paths = {}
     for name, c, pc in (("multiview", cfg, batch["point_clouds"]),
                         ("default", ModelConfig(), plain_clouds)):
@@ -2393,12 +2537,13 @@ def metric_misses(got, want, rtol, atol):
     return {k: (got[k], v) for k, v in want.items() if abs(got[k] - v) > atol + rtol * abs(v)}
 
 
-def check_launches(what, per_call):
-    """Every train step and forward of a rank launches as one of the CLIs'."""
-    bad = [c for c in per_call if c != CLI_WANT]
+def check_launches(what, per_call, want=CLI_WANT):
+    """Every train step and forward of a rank launches as ``want`` says (by
+    default as one of the CLIs')."""
+    bad = [c for c in per_call if c != want]
     if bad or not per_call:
         raise AssertionError(f"{what}: {len(bad)} of {len(per_call)} calls launched other "
-                             f"than {CLI_WANT}: {bad[:3]}")
+                             f"than {want}: {bad[:3]}")
 
 
 def parallel_shared_card(out, cfg, smi, launches):
@@ -2444,15 +2589,19 @@ def phase_parallel(smi, ranks=2, backend="gloo"):
     BN buffers bit-equal. P3: tensor parallelism over the
     same two ranks: the eval forward's tokens against the replicated
     forward's here (equal, or each differing row a near tie by
-    ``compare_tokens``), objectness within 1e-5, and one TP train step's
-    metrics against P2's 1-process step as P2's, the ranks' parameters
-    bit-equal after it. P4: the
+    ``compare_tokens``), objectness within 1e-5; the fused eval forward
+    (``eval_decode_fused``: the FFN kernel's partial sums on each rank's
+    d_ff slice, one all-reduce after each) against the replicated fused
+    forward here as the unfused one, its ranks' token digests equal and
+    each rank's launches TP_FUSED_WANT, both forwards timed in turns; and
+    one TP train step's metrics against P2's 1-process step as P2's, the
+    ranks' parameters bit-equal after it. P4: the
     seed-sharded grid over PARALLEL_GRID_SCENES scenes of the cli split x
     PARALLEL_GRID_SEEDS seeds against the 1-process grid here: equal rows.
     P5: the train CLI with --multihost on two ranks (one epoch, one
     validation) writes one run directory, from rank 0; the eval CLI with
-    --multihost --mul_eval gives the 1-process CLI's rows. Every train step
-    and forward of P1-P4 launches FPS 2, ball query 5 and the decode
+    --multihost --mul_eval gives the 1-process CLI's rows. Every other train
+    step and forward of P1-P4 launches FPS 2, ball query 5 and the decode
     kernels 0 times on each rank. Returns those launches by leg.
 
     ``python3 chip_smoke.py --ranks N``, on a machine of N cards, runs
@@ -2523,22 +2672,33 @@ def phase_parallel(smi, ranks=2, backend="gloo"):
         launches["P3_tp_eval"] = [t["eval_launches"] for t in tp]
         launches["P3_tp_step"] = [t["steps"][0]["launches"] for t in tp]
         check_launches("P3", launches["P3_tp_eval"] + launches["P3_tp_step"])
-        try:
-            shard_model(SpaCapNet(dataclasses.replace(cfg, eval_decode_fused=True)),
-                        TPMesh(2, None, None, 0, 0, 1))
-            fused_refused = False
-        except NotImplementedError:
-            fused_refused = True
+        # the fused TP forward (counts set to 0 just before it on each rank)
+        # against the replicated fused forward here
+        fused_cfg = dataclasses.replace(cfg, eval_decode_fused=True)
+        fused_model = init_spacap(fused_cfg, seed=0, device=DEV)
+        fused_model.load_state_dict(model.state_dict())
+        want_fused = make_eval_step(fused_cfg, device=DEV)(fused_model, dev_batch)
+        got_fused = torch.load(os.path.join(p2_dir, "tp_eval_fused.pt"), weights_only=True)
+        fused_tokens = compare_tokens({"model": fused_model}, dev_batch, want_fused["lang_cap"],
+                                      got_fused["lang_cap"].to(dev))
+        fused_obj = float((got_fused["objectness_scores"].to(dev)
+                           - want_fused["objectness_scores"]).abs().max())
+        launches["P3_tp_fused_eval"] = [t["fused"]["eval_launches"] for t in tp]
+        check_launches("P3 fused", launches["P3_tp_fused_eval"], TP_FUSED_WANT)
+        fused_same = len({t["fused"]["token_digest"] for t in tp}) == 1
         tp_same = len({t["param_digest"] for t in tp}) == 1
         log("parallel", leg="P3", tp=2, sharded_parameters=tp[0]["sharded_parameters"],
             tokens=tokens, token_digests_equal=len({t["token_digest"] for t in tp}) == 1,
             objectness_max_abs=obj, step_misses=tp_miss,
             step_ms=[t["steps"][0]["ms"] for t in tp], ranks_bit_equal=tp_same,
-            fused_decode_refused=fused_refused, launches={k: launches[k] for k in (
-                "P3_tp_eval", "P3_tp_step")}, nvidia_smi=smi)
-        if obj > PARALLEL_OBJ_ATOL or any(tp_miss) or not fused_refused or not tp_same:
-            raise AssertionError(f"P3: objectness {obj}, step {tp_miss}, fused refused "
-                                 f"{fused_refused}, ranks bit-equal {tp_same}")
+            fused_tokens=fused_tokens, fused_token_digests_equal=fused_same,
+            fused_objectness_max_abs=fused_obj, eval_ms=[t["eval_ms"] for t in tp],
+            launches={k: launches[k] for k in ("P3_tp_eval", "P3_tp_step", "P3_tp_fused_eval")},
+            nvidia_smi=smi)
+        if (obj > PARALLEL_OBJ_ATOL or fused_obj > PARALLEL_OBJ_ATOL or any(tp_miss)
+                or not tp_same or not fused_same):
+            raise AssertionError(f"P3: objectness {obj}, fused {fused_obj}, step {tp_miss}, "
+                                 f"ranks bit-equal {tp_same}, fused digests equal {fused_same}")
 
         grid = [r["grid"] for r in results]
         anns, ds, vocab, dc = grid_dataset(root, os.path.join(
@@ -2662,12 +2822,18 @@ def main() -> int:
         "generator_argmax": ("spacap3d_tpu_torch/csrc/decode.cu",
                              "spacap3d_tpu/ops/decode_pallas.py:57"),
         "ffn": ("spacap3d_tpu_torch/csrc/decode.cu", "spacap3d_tpu/ops/decode_pallas.py:127"),
+        "ffn_partial": ("spacap3d_tpu_torch/csrc/decode.cu",
+                        "spacap3d_tpu/ops/decode_pallas.py:127"),
     }
+    # the partial-sum kernel's path is P3's fused TP eval forward: rank 0's
+    # count, set to 0 just before that forward and read just after
+    launches["ffn_partial"] = parallel_launches["P3_tp_fused_eval"][0]["ffn_partial"]
     kernels = []
     for name, rows in per_shape.items():
         # per call, summed over the distinct shapes the main path gives it
         # (FPS and ball query launch once at each; the decode kernels 31 and
-        # 192 times at one shape); ragged and tie shapes are checks only
+        # 192 times at one shape, ffn_partial 192 on each TP rank); ragged,
+        # tie and tp-4 shapes are checks only
         main = [r for r in rows if r.get("main_path", True)]
         lib = [r.get("library_ms") for r in main]
         kernels.append({
@@ -2697,7 +2863,7 @@ def main() -> int:
                 "shape", "npoint", "cluster", "threads", "points_per_thread", "shared_memory",
                 "max_active_clusters", "registers", "spill_stores", "spill_loads",
                 "us_per_step")} for r in main]
-        if name in ("generator_argmax", "ffn"):   # the split and build of the main-path launch
+        if name in ("generator_argmax", "ffn", "ffn_partial"):   # main-path launch: split, build
             kernels[-1].update({k: main[0][k] for k in (
                 "cluster", "stages", "dynamic_smem", "max_active_clusters", "ptxas")})
         if name == "generator_argmax":

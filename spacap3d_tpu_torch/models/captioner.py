@@ -233,7 +233,8 @@ class _DecodeWeights:
     decode also keeps bf16 copies of the FFN and generator weights in the
     kernels' layout, built here, outside the step loop. Under tensor
     parallelism (``group``) the weights are this rank's slices, ``h`` its
-    heads, and ``row`` sums a row-parallel product over the group."""
+    heads, and ``row`` sums a row-parallel product over the group; a fused
+    decode packs the rank's d_ff slice of each FFN for ``ops.ffn_partial``."""
 
     def __init__(self, model: TransformerModel, cfg: ModelConfig, dd: torch.dtype,
                  group=None):
@@ -498,8 +499,11 @@ class Captioner(nn.Module):
                 x = x + w.row(merge_heads(att).to(dd).float(), lw["src3_w"],
                               lw["src3_b"]).to(dd)
             xn = norm(lw["ln2"], x)
-            if w.fused:
+            if w.fused and w.group is None:
                 x = x + ops.ffn(xn[:, 0], lw["ffn"])[:, None]
+            elif w.fused:   # this rank's d_ff slice, summed over the group as ``row``
+                part = ops.ffn_partial(xn[:, 0], lw["ffn"])
+                x = x + (reduce_from_group(part, w.group) + lw["b2"]).to(dd)[:, None]
             else:
                 hid = torch.relu(dense(xn.float(), lw["w1"], lw["b1"])).to(dd)
                 x = x + w.row(hid.float(), lw["w2"], lw["b2"]).to(dd)

@@ -1,6 +1,6 @@
 """Ops of the eval forward. FPS, ball query and the fused decode kernels
-(generator argmax, FFN) have CUDA kernels (``csrc/``); the rest is plain
-PyTorch."""
+(generator argmax, FFN and its tensor-parallel partial sum) have CUDA
+kernels (``csrc/``); the rest is plain PyTorch."""
 
 from spacap3d_tpu_torch.ops.ball_query import (  # noqa: F401
     BQ_TILE_POINTS,
@@ -18,6 +18,8 @@ from spacap3d_tpu_torch.ops.decode import (  # noqa: F401
     ffn,
     ffn_default_cluster,
     ffn_launch_info,
+    ffn_partial,
+    ffn_partial_plain,
     ffn_plain,
     generator_argmax,
     generator_argmax_plain,

@@ -211,6 +211,10 @@ def library() -> ctypes.CDLL:
     lib.spacap_ffn.restype = i32
     lib.spacap_ffn_launch_info.argtypes = [i32, i32, i32, i32p, i32p, i32p]
     lib.spacap_ffn_launch_info.restype = i32
+    lib.spacap_ffn_partial.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp]
+    lib.spacap_ffn_partial.restype = i32
+    lib.spacap_ffn_partial_launch_info.argtypes = [i32, i32, i32, i32p, i32p, i32p]
+    lib.spacap_ffn_partial_launch_info.restype = i32
     _lib = lib
     return lib
 

@@ -8,6 +8,11 @@ Contract (as ``spacap3d_tpu/ops/decode_pallas.py``), all operands bf16:
 * ``ffn(x, pack_ffn(w1, b1, w2, b2))``:
   ``bf16(bf16(relu(x @ w1^T + b1)) @ w2^T + b2)``, f32 accumulation, the
   (R, d_ff) hidden kept on chip.
+* ``ffn_partial(x, pack_ffn(w1, b1, w2, b2))``, for tensor parallelism,
+  where w1, b1 and w2 are one rank's d_ff slice:
+  ``bf16(relu(x @ w1^T + b1)) @ w2^T`` in f32, without b2 and unrounded.
+  The caller sums the ranks' partials, adds b2 and rounds once, as the
+  unfused decode's row-parallel layer does.
 
 Weights are given in the port's (out, in) layout. ``pack_generator`` and
 ``pack_ffn`` lay them out once per decode as the shared-memory image each
@@ -74,11 +79,17 @@ class PackedGenerator:
         return self.image.shape[0]
 
 
+def ffn_partial_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                      w2: torch.Tensor) -> torch.Tensor:
+    """(R, d) -> (R, d) f32, the hidden rounded to x's dtype, no b2."""
+    hid = torch.relu(torch.matmul(x.float(), w1.float().t()) + b1.float()).to(x.dtype)
+    return torch.matmul(hid.float(), w2.float().t())
+
+
 def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor) -> torch.Tensor:
     """(R, d) -> (R, d) in x's dtype, the hidden rounded to x's dtype."""
-    hid = torch.relu(torch.matmul(x.float(), w1.float().t()) + b1.float()).to(x.dtype)
-    return (torch.matmul(hid.float(), w2.float().t()) + b2.float()).to(x.dtype)
+    return (ffn_partial_plain(x, w1, b1, w2) + b2.float()).to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,21 +212,27 @@ def one_wave_cluster(r: int, chunks: int, resident: Callable[[int], int]) -> int
 
 
 @functools.lru_cache(maxsize=None)
-def ffn_launch_info(device_index: int, d: int, chunks: int, cluster: int) -> dict:
-    """The FFN kernel's launch on CUDA device ``device_index``: ring stages,
-    dynamic shared memory (bytes) and co-resident clusters."""
+def ffn_launch_info(device_index: int, d: int, chunks: int, cluster: int,
+                    partial: bool = False) -> dict:
+    """The FFN kernel's launch (``partial``: ``ffn_partial``'s) on CUDA
+    device ``device_index``: ring stages, dynamic shared memory (bytes) and
+    co-resident clusters."""
     out = [ctypes.c_int() for _ in range(3)]
+    lib = _build.library()
+    info = lib.spacap_ffn_partial_launch_info if partial else lib.spacap_ffn_launch_info
     with torch.cuda.device(device_index):
-        err = _build.library().spacap_ffn_launch_info(d, chunks, cluster, *map(ctypes.byref, out))
+        err = info(d, chunks, cluster, *map(ctypes.byref, out))
     _build.check(err, "ffn launch info")
     return dict(zip(("stages", "dynamic_smem", "max_active_clusters"), (o.value for o in out)))
 
 
 @functools.lru_cache(maxsize=None)
-def ffn_default_cluster(device_index: int, r: int, d: int, chunks: int) -> int:
-    """The S that ``ffn`` takes by default for R = r on that device."""
+def ffn_default_cluster(device_index: int, r: int, d: int, chunks: int,
+                        partial: bool = False) -> int:
+    """The S that ``ffn`` (``partial``: ``ffn_partial``) takes by default
+    for R = r on that device."""
     return one_wave_cluster(r, chunks, lambda s: ffn_launch_info(
-        device_index, d, chunks, s)["max_active_clusters"])
+        device_index, d, chunks, s, partial)["max_active_clusters"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -302,18 +319,25 @@ def generator_argmax(x: torch.Tensor, packed: PackedGenerator, *,
     return out
 
 
+def _ffn_args(name: str, x: torch.Tensor, packed: PackedFFN) -> torch.device:
+    """Both FFN wrappers' checks; returns the device."""
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be (R, d), got {tuple(x.shape)}")
+    dev = _check(name, (("x", x), ("packed.w1", packed.w1)),
+                 ((x.shape[0], packed.d), (packed.d_ff, packed.d)))
+    _check_width(name, packed.d)
+    return dev
+
+
 def ffn(x: torch.Tensor, packed: PackedFFN, *, cluster: Optional[int] = None) -> torch.Tensor:
     """x (R, d) bf16, ``packed = pack_ffn(w1, b1, w2, b2)`` on x's device ->
     (R, d) bf16. ``cluster`` (1-8) sets how many blocks split d_ff; by
     default ``ffn_default_cluster`` picks it from R and the device."""
-    if x.dim() != 2:
-        raise ValueError(f"ffn: x must be (R, d), got {tuple(x.shape)}")
-    r, d = x.shape
-    dev = _check("ffn", (("x", x), ("packed.w1", packed.w1)),
-                 ((r, packed.d), (packed.d_ff, packed.d)))
+    dev = _ffn_args("ffn", x, packed)
     if dev.type == "cpu":
         return ffn_plain(x, packed.w1, packed.b1, packed.w2, packed.b2)
     _check_cuda("ffn", (("x", x),))
+    r, d = x.shape
     cluster = _cluster("ffn", cluster, lambda: ffn_default_cluster(dev.index, r, d, packed.chunks))
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -326,5 +350,31 @@ def ffn(x: torch.Tensor, packed: PackedFFN, *, cluster: Optional[int] = None) ->
     return out
 
 
+def ffn_partial(x: torch.Tensor, packed: PackedFFN, *,
+                cluster: Optional[int] = None) -> torch.Tensor:
+    """x (R, d) bf16, ``packed = pack_ffn(w1, b1, w2, b2)`` of one rank's d_ff
+    slice on x's device -> (R, d) f32: the slice's partial sum, without b2
+    and unrounded (``packed.b2`` is not read). ``cluster`` (1-8) sets how
+    many blocks split the slice; by default ``ffn_default_cluster`` picks
+    it from R and the device."""
+    dev = _ffn_args("ffn_partial", x, packed)
+    if dev.type == "cpu":
+        return ffn_partial_plain(x, packed.w1, packed.b1, packed.w2)
+    _check_cuda("ffn_partial", (("x", x),))
+    r, d = x.shape
+    cluster = _cluster("ffn_partial", cluster, lambda: ffn_default_cluster(
+        dev.index, r, d, packed.chunks, True))
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        out = torch.empty((r, d), dtype=torch.float32, device=dev)
+        err = lib.spacap_ffn_partial(x.data_ptr(), packed.image.data_ptr(), r, d, packed.chunks,
+                                     cluster, out.data_ptr(),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ffn_partial")
+    ffn_partial.launches += 1
+    return out
+
+
 generator_argmax.launches = 0
 ffn.launches = 0
+ffn_partial.launches = 0

@@ -18,7 +18,11 @@ process group (``multihost.initialize_from_env``) and runs its legs:
   plain step's, and counts where its own differ).
 * ``tp``: tensor parallelism over model groups of ``TP`` ranks
   (``parallel/tp.py``): the eval forward's tokens and objectness on the
-  global batch, and one train step, from the same weights.
+  global batch, and one train step, from the same weights; also the eval
+  forward with ``eval_decode_fused`` (the fused decode kernels, the FFN's
+  in its partial-sum mode on the rank's d_ff slice), its launch counts set
+  to 0 just before it and read just after, and both forwards timed in
+  turns.
 * ``grid``: the seed-sharded ``mul_eval_grid_multihost`` over a synthetic
   split (``--data_root``).
 * ``refuse_nccl``: asks for NCCL and exits 0 only if the runtime refuses
@@ -29,7 +33,7 @@ writes ``rank{i}.json`` into ``--out``: per leg its metrics, digests of
 its parameters and BN buffers (equal digests: bit-equal tensors), kernel
 launch counts on CUDA, step times and, from rank 0, tensors for a caller
 to hold against a reference (``dp_state.pt``, ``tp_eval.pt``,
-``tp_state.pt``).
+``tp_eval_fused.pt``, ``tp_state.pt``).
 """
 from __future__ import annotations
 
@@ -78,7 +82,8 @@ SEED, TP, GRID_MIN_IOU = 0, 2, 0.05
 POOLS = {**{f"sa{i}": f"backbone_net.sa{i}.mlp_module" for i in range(1, 5)},
          "aggregation": "proposal.vote_aggregation.mlp_module"}
 KERNELS = {"fps": ops.furthest_point_sample, "ball_query": ops.ball_query,
-           "generator_argmax": ops.generator_argmax, "ffn": ops.ffn}
+           "generator_argmax": ops.generator_argmax, "ffn": ops.ffn,
+           "ffn_partial": ops.ffn_partial}
 
 
 def parse_args(argv=None):
@@ -320,11 +325,54 @@ class Worker:
                                          for k, v in model.state_dict().items())
         return res
 
-    def fresh_model_local(self, state) -> SpaCapNet:
+    def fresh_model_local(self, state, cfg=None) -> SpaCapNet:
         """A model holding ``state``, without a collective (rank 0 alone)."""
-        model = SpaCapNet(self.cfg).to(self.dev)
+        model = SpaCapNet(cfg or self.cfg).to(self.dev)
         model.load_state_dict(state)
         return model
+
+    def eval_times(self, paths, batch, turns=1) -> Dict:
+        """Per path (name -> (eval step, model)): the synchronised wall ms of
+        its eval forwards and of their greedy decodes, in turns (``turns``
+        times unfused, fused, fused, unfused), and their medians."""
+        times = {name: {"forward_ms": [], "decode_ms": []} for name in paths}
+        for name in ["unfused", "fused", "fused", "unfused"] * turns:
+            step, model = paths[name]
+            cap = model.caption
+            decode = cap.greedy_decode
+
+            def timed(obj, decode=decode, into=times[name]["decode_ms"]):
+                synchronize(self.dev)
+                t0 = time.perf_counter()
+                toks = decode(obj)
+                synchronize(self.dev)
+                into.append((time.perf_counter() - t0) * 1e3)
+                return toks
+
+            cap.greedy_decode = timed
+            try:
+                synchronize(self.dev)
+                t0 = time.perf_counter()
+                step(model, batch)
+                synchronize(self.dev)
+            finally:
+                del cap.greedy_decode
+            times[name]["forward_ms"].append((time.perf_counter() - t0) * 1e3)
+        for t in times.values():
+            t.update({f"{k}_median": float(np.median(v)) for k, v in list(t.items())})
+        return times
+
+    def tp_tokens(self, name: str, out) -> str:
+        """The digest of a TP eval forward's tokens, which every rank of the
+        world must share; rank 0 saves the tokens and objectness as
+        ``name``."""
+        tokens = out["lang_cap"].cpu()
+        token_digest = digest({"lang_cap": tokens})
+        digests = multihost.allgather_pyobj(token_digest)
+        if len(set(digests)) != 1:
+            raise AssertionError(f"TP ranks decoded different tokens: {digests}")
+        self.save(name, {"lang_cap": tokens, "objectness_scores": out["objectness_scores"].cpu()})
+        return token_digest
 
     def leg_tp(self) -> Dict:
         mesh = tp_mod.make_tp_mesh(TP)
@@ -338,13 +386,20 @@ class Worker:
         before = {k: f.launches for k, f in KERNELS.items()}
         out = make_eval_step(self.cfg, device=self.dev)(model, eval_batch)
         res["eval_launches"] = {k: f.launches - before[k] for k, f in KERNELS.items()}
-        tokens = out["lang_cap"].cpu()
-        res["token_digest"] = digest({"lang_cap": tokens})
-        digests = multihost.allgather_pyobj(res["token_digest"])
-        if len(set(digests)) != 1:
-            raise AssertionError(f"TP ranks decoded different tokens: {digests}")
-        self.save("tp_eval.pt", {"lang_cap": tokens,
-                                 "objectness_scores": out["objectness_scores"].cpu()})
+        res["token_digest"] = self.tp_tokens("tp_eval.pt", out)
+        cfg = dataclasses.replace(self.cfg, eval_decode_fused=True)
+        fused = self.fresh_model_local(start, cfg)   # the flag travels in the config
+        tp_mod.shard_model(fused, mesh)
+        fused_step = make_eval_step(cfg, device=self.dev)
+        for f in KERNELS.values():
+            f.launches = 0
+        out = fused_step(fused, eval_batch)
+        synchronize(self.dev)
+        res["fused"] = {"eval_launches": {k: f.launches for k, f in KERNELS.items()},
+                        "token_digest": self.tp_tokens("tp_eval_fused.pt", out)}
+        res["eval_ms"] = self.eval_times({
+            "unfused": (make_eval_step(self.cfg, device=self.dev), model),
+            "fused": (fused_step, fused)}, eval_batch)
 
         model = self.fresh_model_local(start)
         tp_mod.shard_model(model, mesh)

@@ -24,8 +24,11 @@ probabilities and values first; the greedy decode sizes its KV caches for
 the rank's heads. Dropout on the rank's heads and FFN columns draws from a
 generator that folds in the model rank (``models/core.py::
 split_generators``), and on whole tensors from the step's generator, alike
-on every rank of the group. The fused decode kernels do not run under TP: with
-``eval_decode_fused`` and ``tp > 1`` the decode raises.
+on every rank of the group. A fused decode (``eval_decode_fused``) runs
+each FFN's kernel on the rank's d_ff slice in its partial-sum mode
+(``ops.ffn_partial``), then the FFN's one all-reduce, b2 and the rounding,
+as the unfused decode; the generator's argmax kernel runs on the whole
+hidden state and the whole generator on every rank.
 
 Groups. ``make_tp_mesh(tp)`` splits a world of ``d * tp`` ranks as the
 JAX package's ``(data, model)`` mesh does, ``tp`` on the inner axis: ranks
@@ -145,9 +148,6 @@ def shard_model(model: nn.Module, mesh: TPMesh) -> nn.Module:
     tp, rank = mesh.tp, mesh.model_rank
     if model.cfg.num_heads % tp:
         raise ValueError(f"TP: {model.cfg.num_heads} heads not divisible by tp={tp}")
-    if model.cfg.eval_decode_fused and tp > 1:
-        raise NotImplementedError("eval_decode_fused runs the whole decoder FFN and "
-                                  "generator on one card; it is not ported to tp > 1")
     specs = tp_param_specs(model.state_dict(), tp)
     with torch.no_grad():
         for name, mod in model.named_modules():

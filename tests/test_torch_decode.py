@@ -1,6 +1,9 @@
 """The port's fused decode kernels (``ops/decode.py``) against the JAX
 package's Pallas kernels (``ops/decode_pallas.py``) on the CPU, and the
-captioner's fused path against its unfused path and against JAX.
+captioner's fused path against its unfused path and against JAX. Under
+tensor parallelism each rank's ``ffn_partial`` equals the unfused row
+path's partial product bit for bit, and so do their sums over the ranks
+with b2 and the one rounding.
 
 On CPU tensors the wrappers take their plain versions, which repeat the
 captioner's unfused op sequence. The Pallas kernels run in interpret mode,
@@ -12,6 +15,7 @@ sum the same exact bf16 products in f32 in other orders, so an output can
 round to its neighbouring bf16 value (2^-8 relative), and a hidden value can
 too, which moves an output by 2^-8 |h| |w2| <= 2^-8 at these scales."""
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +29,7 @@ from spacap3d_tpu.ops import decode_pallas as dp
 from spacap3d_tpu_torch import ops
 from spacap3d_tpu_torch.config import ModelConfig
 from spacap3d_tpu_torch.models import captioner as tcap
+from spacap3d_tpu_torch.models.core import dense
 from spacap3d_tpu_torch.ops import decode as dops
 from test_torch_models import (
     _decode_both,
@@ -182,6 +187,87 @@ def test_ffn_on_packed_weights_equals_ffn_plain_bit_for_bit(r, d, f):
     _, x = _bf16(rng.randn(r, d))
     got = ops.ffn(x, ops.pack_ffn(*weights))
     assert got.dtype == torch.bfloat16 and torch.equal(got, ops.ffn_plain(x, *weights))
+
+
+def _rank_sum(parts):
+    """The ranks' partials summed in rank order: each rank's all-reduce."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+@pytest.mark.parametrize("tp,f", [(1, 128), (2, 256), (4, 256),
+                                  (2, 96)])   # 48 a rank: a multiple of 16, not of 64
+def test_ffn_partial_sums_equal_the_row_path_bit_for_bit(monkeypatch, tp, f):
+    """Each rank packs its d_ff slice (w1 rows, b1, w2 columns, the whole b2).
+    Its ``ffn_partial`` equals the unfused decode's row-parallel partial
+    product, the f32 product of the bf16-rounded relu hidden with the w2
+    slice, bit for bit; the ranks' partials summed, plus b2, rounded once
+    equal what ``_DecodeWeights.row`` gives from the row path's partials
+    (the group's all-reduce stood in for by a sum in rank order). At tp 1
+    that is ``ffn_plain``."""
+    d, r = 32, 100
+    rng = np.random.RandomState(tp * f)
+    w1, b1, w2, b2 = _ffn_weights(rng, d, f)
+    _, x = _bf16(rng.randn(r, d))
+    n = f // tp
+    got, want, hids = [], [], []
+    for k in range(tp):
+        cols = slice(k * n, (k + 1) * n)
+        packed = ops.pack_ffn(w1[cols], b1[cols], w2[:, cols].contiguous(), b2)
+        got.append(ops.ffn_partial(x, packed))
+        assert got[-1].dtype == torch.float32 and got[-1].shape == (r, d)
+        hid = torch.relu(dense(x.float(), w1[cols].float(), b1[cols].float())).bfloat16()
+        want.append(dense(hid.float(), w2[:, cols].float()))
+        hids.append(hid)
+        assert torch.equal(got[-1], want[-1])
+    fused = (_rank_sum(got) + b2.float()).bfloat16()
+    # rank 0's row path, its partial summed with the other ranks'
+    monkeypatch.setattr(tcap, "reduce_from_group",
+                        lambda part, others: _rank_sum([part, *others]))
+    row = tcap._DecodeWeights.row(types.SimpleNamespace(group=want[1:]), hids[0].float(),
+                                  w2[:, :n].float(), b2.float()).bfloat16()
+    assert torch.equal(fused, row)
+    if tp == 1:
+        assert torch.equal(fused, ops.ffn_plain(x, w1, b1, w2, b2))
+    np.testing.assert_allclose(fused.float().numpy(),
+                               ops.ffn_plain(x, w1, b1, w2, b2).float().numpy(),
+                               rtol=FFN_RTOL, atol=FFN_ATOL)
+
+
+def _ffn_partial_case(case):
+    """(x, packed) that ``ffn_partial`` must refuse, by case."""
+    bf = torch.bfloat16
+    w1, b1, w2, b2 = (torch.zeros(s, dtype=bf) for s in ((64, 32), (64,), (32, 64), (32,)))
+    packed = ops.pack_ffn(w1, b1, w2, b2)
+    if case == "x not (R, d)":
+        return torch.zeros(4, 1, 32, dtype=bf), packed
+    if case == "x of another width":
+        return torch.zeros(4, 48, dtype=bf), packed
+    if case == "x in f32":
+        return torch.zeros(4, 32), packed
+    if case == "d above 256":   # packed by hand: pack_ffn refuses it too
+        w = torch.zeros(64, 272, dtype=bf)
+        wide = ops.decode.PackedFFN(packed.image, torch.zeros(320), w, b1,
+                                    torch.zeros(272, 64, dtype=bf), torch.zeros(272, dtype=bf))
+        return torch.zeros(4, 272, dtype=bf), wide
+    # every tensor on the meta device (pack_ffn refuses it, so by hand)
+    meta = [t.to("meta") for t in (packed.image, packed.b2_pad, w1, b1, w2, b2)]
+    return torch.zeros(4, 32, dtype=bf, device="meta"), ops.decode.PackedFFN(*meta)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("x not (R, d)", "must be \\(R, d\\)"), ("x of another width", "shape"),
+    ("x in f32", "bfloat16"), ("d above 256", "at most 256"),
+    ("neither CUDA nor CPU", "unsupported device"),
+])
+def test_ffn_partial_refuses_what_the_kernel_does_not_take(case, match):
+    x, packed = _ffn_partial_case(case)
+    before = ops.ffn_partial.launches
+    with pytest.raises(ValueError, match=match):
+        ops.ffn_partial(x, packed)
+    assert ops.ffn_partial.launches == before
 
 
 @pytest.mark.parametrize("shapes,dtype,match", [

@@ -12,7 +12,10 @@ whole tensors, a restore cuts them back to the saved slices, and the
 checkpoint loads into a model without TP; its ranks keep one best
 checkpoint when their validation scores differ. At dropout 0.1 each model
 rank draws its own slices' masks, and the whole parameters stay
-bit-equal."""
+bit-equal. The fused decode (``eval_decode_fused``) under TP, its kernels'
+plain versions forced on for CPU tensors, decodes the replicated unfused
+tokens bit for bit (the FFN's partial sums are the unfused row path's), and
+agrees with the JAX package's TP eval with the flag on, or ties."""
 import argparse
 import dataclasses
 import json
@@ -207,34 +210,75 @@ def dropout_worker(argv):
     multihost.shutdown()
 
 
+def fused_worker(argv):
+    """One rank of ``mp_dryrun``'s tp leg on the CPU, its fused forward too: the
+    captioner's fused gate admits CPU tensors (so the fused branch runs the
+    kernels' plain versions), and counting shims over the three decode
+    wrappers stand in for the launch counters, which count CUDA launches
+    only. ``argv`` goes to ``mp_dryrun.main``."""
+    from spacap3d_tpu_torch import ops
+    from spacap3d_tpu_torch.models import captioner
+    from spacap3d_tpu_torch.parallel import mp_dryrun
+
+    def counting(fn):
+        def call(*a, **kw):
+            call.launches += 1
+            return fn(*a, **kw)
+        call.launches = 0
+        return call
+
+    captioner.decode_fused = lambda cfg, dd, dev: (bool(cfg.eval_decode_fused)
+                                                   and dd == torch.bfloat16)
+    for name in ("generator_argmax", "ffn", "ffn_partial"):
+        shim = counting(getattr(ops, name))
+        setattr(ops, name, shim)
+        mp_dryrun.KERNELS[name] = shim
+    sys.exit(mp_dryrun.main(argv))
+
+
 WORKERS = {"--solver_worker": solver_worker, "--disagree_worker": disagree_worker,
-           "--dropout_worker": dropout_worker}
+           "--dropout_worker": dropout_worker, "--fused_worker": fused_worker}
 if __name__ == "__main__" and sys.argv[1:2] and sys.argv[1] in WORKERS:
     sys.path.insert(0, REPO)
     WORKERS[sys.argv[1]](sys.argv[2:])
     sys.exit(0)
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from spacap3d_tpu.config import ModelConfig as JaxModelConfig  # noqa: E402
 from spacap3d_tpu.data.scannet_config import ScannetDatasetConfig as JaxDatasetConfig  # noqa
 from spacap3d_tpu.models import init_spacap as jax_init_spacap  # noqa: E402
+from spacap3d_tpu.models.captioner import captioner_eval  # noqa: E402
+from spacap3d_tpu.parallel.tp import count_sharded as jax_count_sharded  # noqa: E402
+from spacap3d_tpu.parallel.tp import make_tp_mesh as jax_make_tp_mesh  # noqa: E402
+from spacap3d_tpu.parallel.tp import shard_params as jax_shard_params  # noqa: E402
 from spacap3d_tpu.parallel.tp import tp_param_specs as jax_tp_param_specs  # noqa: E402
 from spacap3d_tpu.utils.convert import convert_state_dict  # noqa: E402
 from spacap3d_tpu_torch.config import ModelConfig, TrainConfig  # noqa: E402
 from spacap3d_tpu_torch.data.synthetic import train_batch, write_synthetic_dataset  # noqa
 from spacap3d_tpu_torch.models import SpaCapNet, init_spacap  # noqa: E402
+from spacap3d_tpu_torch.models import captioner as tcap  # noqa: E402
 from spacap3d_tpu_torch.parallel.mp_dryrun import launch  # noqa: E402
-from spacap3d_tpu_torch.parallel.tp import TPMesh, shard_model, tp_param_specs  # noqa: E402
+from spacap3d_tpu_torch.parallel.tp import (  # noqa: E402
+    TPMesh,
+    count_sharded,
+    shard_model,
+    tp_param_specs,
+)
 from spacap3d_tpu_torch.train.step import (  # noqa: E402
     EVAL_INPUT_KEYS,
     make_eval_step,
     make_train_step,
 )
 from spacap3d_tpu_torch.utils.checkpoint import load_checkpoint  # noqa: E402
+from test_torch_models import assert_tokens_match_or_tie  # noqa: E402
 
 B = 4
+# the fused TP decode's d_ff: 64 a rank at tp 2, one whole chunk of the
+# kernel's, 32 at tp 4
+FUSED_D_FF = 128
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -293,11 +337,25 @@ def test_layout_matches_jax_tp_param_specs():
                     mesh)
 
 
-def test_fused_decode_refuses_tensor_parallelism():
-    mesh = TPMesh(tp=2, model=None, data=None, model_rank=0, data_rank=0, data_size=1)
-    model = SpaCapNet(ModelConfig(**dict(MODEL, eval_decode_fused=True)))
-    with pytest.raises(NotImplementedError, match="eval_decode_fused"):
-        shard_model(model, mesh)
+@pytest.mark.parametrize("tp", [2, 4])
+def test_shard_model_accepts_a_fused_config(monkeypatch, tp):
+    """``eval_decode_fused`` shards as the unfused model does, and the fused
+    decode packs this rank's d_ff slice of each FFN (its w_1 rows, its w_2
+    columns, the whole b2) for ``ops.ffn_partial``."""
+    rank, n = tp - 1, FUSED_D_FF // tp
+    mesh = TPMesh(tp=tp, model=None, data=None, model_rank=rank, data_rank=0, data_size=1)
+    cfg = ModelConfig(**dict(MODEL, d_ff=FUSED_D_FF, eval_decode_fused=True))
+    model = init_spacap(cfg, seed=1, device="cpu")
+    ff = model.caption.model.decoder.layers[0].feed_forward
+    w1, w2, b2 = (t.detach().clone() for t in (ff.w_1.matrix(), ff.w_2.matrix(), ff.w_2.bias))
+    assert shard_model(model, mesh) is model and count_sharded(model) == 40
+    monkeypatch.setattr(tcap, "decode_fused", lambda c, dd, dev: c.eval_decode_fused)
+    w = tcap._DecodeWeights(model.caption.model, cfg, torch.bfloat16, group=mesh.model)
+    packed = w.layers[0]["ffn"]
+    assert w.fused and (packed.d_ff, packed.d) == (n, MODEL["d_model"])
+    assert torch.equal(packed.w1, w1[rank * n:(rank + 1) * n].bfloat16())
+    assert torch.equal(packed.w2, w2[:, rank * n:(rank + 1) * n].bfloat16())
+    assert torch.equal(packed.b2, b2.bfloat16())
 
 
 @pytest.fixture(scope="module")
@@ -318,6 +376,83 @@ def tp_world(tmp_path_factory):
                          str(root / "batch.npz"), "--optimizer", "sgd", "--lr", "1e-4",
                          "--timeout", str(INIT_TIMEOUT)], root)
     return dict(root=root, cfg=cfg, sd=model.state_dict(), batch=batch, results=results)
+
+
+@pytest.fixture(scope="module")
+def fused_world(tmp_path_factory):
+    """Seeded weights at d_ff FUSED_D_FF and a batch of 4; ``mp_dryrun``'s tp
+    leg on 2 ranks of ``fused_worker``, and the replicated model's unfused
+    eval forward here."""
+    root = tmp_path_factory.mktemp("tp_fused")
+    cfg = ModelConfig(**dict(MODEL, d_ff=FUSED_D_FF))
+    model = init_spacap(cfg, seed=4, device="cpu")
+    torch.save(model.state_dict(), root / "weights.pt")
+    batch = train_batch(cfg, B, seed=2)
+    np.savez(root / "batch.npz", **batch)
+    with open(root / "cfg.json", "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    results = run_world([os.path.abspath(__file__), "--fused_worker", "--out", str(root),
+                         "--legs", "tp", "--device", "cpu", "--config",
+                         str(root / "cfg.json"), "--weights", str(root / "weights.pt"),
+                         "--batch", str(root / "batch.npz"), "--optimizer", "sgd", "--lr",
+                         "1e-4", "--timeout", str(INIT_TIMEOUT)], root)
+    eval_batch = {k: batch[k] for k in EVAL_INPUT_KEYS}
+    want = make_eval_step(cfg, device="cpu")(model, eval_batch)
+    return dict(root=root, cfg=cfg, model=model, batch=eval_batch, results=results, want=want)
+
+
+def test_fused_tp_tokens_equal_replicated_unfused(fused_world):
+    """Each rank's FFN partial sums equal the unfused row path's, so the
+    fused TP tokens are the replicated unfused tokens bit for bit; every
+    decoder FFN goes through ``ffn_partial`` (layers x (steps + early
+    guide) calls a rank) and none through ``ffn``."""
+    cfg, want = fused_world["cfg"], fused_world["want"]
+    steps = cfg.max_des_len + 1
+    calls = {"fps": 0, "ball_query": 0, "generator_argmax": steps, "ffn": 0,
+             "ffn_partial": cfg.num_layers * (steps + int(cfg.early_guide))}
+    fused = [r["tp"]["fused"] for r in fused_world["results"]]
+    assert [f["eval_launches"] for f in fused] == [calls, calls]
+    assert fused[0]["token_digest"] == fused[1]["token_digest"]
+    got = torch.load(fused_world["root"] / "tp_eval_fused.pt", weights_only=True)
+    unfused = torch.load(fused_world["root"] / "tp_eval.pt", weights_only=True)
+    assert torch.equal(got["lang_cap"], want["lang_cap"])
+    assert torch.equal(unfused["lang_cap"], want["lang_cap"])
+    assert len(torch.unique(want["lang_cap"])) > 3
+    torch.testing.assert_close(got["objectness_scores"], want["objectness_scores"],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_fused_tp_tokens_match_jax_tp_eval_or_tie(fused_world):
+    """The same weights (``convert_state_dict``) through the JAX package's
+    captioner eval with ``eval_decode_fused``, its parameters on the TP
+    layout of a (1, 2) mesh of the forced host devices (on the CPU JAX keeps
+    its unfused decode), fed the proposals of the port's trunk: the two
+    trunks differ within f32 rounding (5e-4), which would move the
+    captioner's input, not only its decode. It runs op by op, each bf16 op
+    rounding as the JAX code says; under jit, XLA's fusions read the f32
+    residual sums before their bf16 rounding
+    (tests/test_torch_models.py::test_bf16_decode_step_differs_from_jit_only_by_fusion),
+    with or without TP. The tokens are equal to the fused TP tokens, or each
+    differing row a near tie in the port's f32 logits
+    (``assert_tokens_match_or_tie``)."""
+    model = fused_world["model"]
+    jcfg = JaxModelConfig(**dict(MODEL, d_ff=FUSED_D_FF, eval_decode_fused=True))
+    params, state = jax_init_spacap(jax.random.PRNGKey(0), jcfg,
+                                    JaxDatasetConfig().mean_size_arr)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    params, state, report = convert_state_dict(sd, params, state, strict=True)
+    assert not report["skipped"]
+    mesh = jax_make_tp_mesh(jax.devices()[:2], tp=2)
+    params = jax_shard_params(mesh, params)
+    assert jax_count_sharded(params) == 40
+    with torch.no_grad():
+        ep = model.detect(torch.from_numpy(fused_world["batch"]["point_clouds"]))
+    ep = {k: v.numpy() for k, v in ep.items() if isinstance(v, torch.Tensor)}
+    with jax.disable_jit():
+        want = np.asarray(captioner_eval(params["caption"], state["caption"], jcfg,
+                                         {k: jnp.asarray(v) for k, v in ep.items()})["lang_cap"])
+    got = torch.load(fused_world["root"] / "tp_eval_fused.pt", weights_only=True)["lang_cap"]
+    assert_tokens_match_or_tie(got.numpy(), want, model, ep)
 
 
 def test_tp_greedy_tokens_equal_replicated(tp_world):
