@@ -18,9 +18,17 @@ cluster sizes 1-4, twice, and on exact-arithmetic inputs: ties, padding,
 empty cluster ranks; the FFN's partial-sum mode at tensor-parallel slices
 of d_ff), drives the eval forward at full width
 (default ModelConfig, B=8, 40,000 points) through ``make_eval_step``,
-unfused and with ``eval_decode_fused`` (the fused decode kernels), checks
-that each forward launched its kernels,
-compares the two forwards' tokens and times them in alternation, drives
+unfused and with ``eval_decode_fused`` (the fused decode kernels), each
+through the default captured step (CUDA graphs) and the eager one, checks
+that each forward launched its kernels (an eager forward by the wrappers'
+counts; a replay, which runs no Python, by its profile's kernel spans, which
+the ``kernels`` line gives as ``launches``, beside ``wrapper_launches``:
+the main run's counts, its eager warm-up's and its capture's),
+compares the two forwards' tokens and times the four in alternation,
+holds the captured step to the eager one (``captured_eval``: every output
+equal under ``torch.equal`` unfused, fused, compact, in point-table mode
+and with the decode's early exit, kept outputs, in-place weight updates,
+a replaced parameter; ``[captured_eval]`` lines), drives
 the train step at full width (``make_train_step``: TrainConfig(), B=8,
 40,000 points, dropout from a seeded CUDA generator) for 13 steps on one
 batch, with its launch counts, finite losses and gradients, a falling loss
@@ -28,9 +36,10 @@ and its time, compares the port on the CPU with the port on the card at
 a reduced size, for the eval forward and for a train step, and drives the
 eval harness at full width (``mul_eval_grid``, ``eval_cap``) on a
 synthetic 141-scene val split: equal per-seed rows from the grid, its
-per-row upload and the serial protocol, the launches of every grid
-forward, and ``mul_eval_e2e_rows_per_sec`` with its phases, with the host
-library and with its plain versions in turns (``[mul_eval]`` lines), and
+per-row upload, its eager step and the serial protocol, the launches of
+every grid forward, and ``mul_eval_e2e_rows_per_sec`` with its phases,
+with the host library, with its plain versions and with the eager step in
+turns (``[mul_eval]`` lines), and
 drives the command lines at full width (``scripts.train``:
 2 epochs with a validation in each, then a resume to a third;
 ``scripts.eval``: one seed, the grid against the serial protocol,
@@ -49,8 +58,10 @@ FFN kernel's partial-sum mode on each rank's d_ff slice, which the
 fails or if CUDA is missing. Prints a line per phase, a ``kernels`` JSON line and, last,
 ``{"ok": true, "device": ...}``.
 """
+import collections
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import json
 import os
@@ -66,7 +77,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from spacap3d_tpu_torch import ops
-from spacap3d_tpu_torch.config import EVAL_MIN_IOU, SOS_ID, DataConfig, ModelConfig, TrainConfig
+from spacap3d_tpu_torch.config import (
+    EOS_ID,
+    EVAL_MIN_IOU,
+    SOS_ID,
+    DataConfig,
+    ModelConfig,
+    TrainConfig,
+)
 from spacap3d_tpu_torch.data import native
 from spacap3d_tpu_torch.data.dataset import ScanReferDataset, SceneStore
 from spacap3d_tpu_torch.data.loader import DataLoader
@@ -244,6 +262,14 @@ PLAIN_BINDINGS = {"choice_noreplace_native": "choice_noreplace_plain",
 # its window (up to 25 in the multiview phase's profiles on an H100), so the window
 # opens at the last marker's span, after the host has waited for them all
 PROFILE_MARKERS, PROFILE_MARKER_CYCLES = 128, 1_000
+# the captured_eval phase: replays after the one whose outputs are kept; the
+# EOS logit raised so that every row emits EOS in the first stage; the
+# point-table path's scenes (of MUL_EVAL_POINTS points)
+CAPTURE_LATER, CAPTURE_EOS_BIAS, CAPTURE_TABLE_SCENES = 9, 30.0, 12
+MUL_EVAL_POINTS = 52000
+# a captured graph's nodes by the driver's CUgraphNodeType: a profile of a
+# replay holds one device span for each kernel, copy and memset node
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
 # the kernels whose device time the forward's profile reports, by kernel name
 PROFILED = {"fps": "fps_kernel", "ball_query": "ball_query_kernel",
             "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel",
@@ -937,7 +963,9 @@ def compare_tokens(path, dev_batch, t_unfused, t_fused):
 
 def phase_eval_forward():
     """The full-width eval forward, unfused (the default) and with the fused
-    decode kernels, on the same seeded weights and batch."""
+    decode kernels, on the same seeded weights and batch, each through the
+    default (captured) step and through the eager one (``capture=False``),
+    timed and profiled in turns."""
     cfg = ModelConfig()
     rng = np.random.RandomState(0)
     _, point_clouds = bench_points(rng, B, cfg.num_points)
@@ -956,65 +984,332 @@ def phase_eval_forward():
     for p in paths.values():     # the flag travels in the model's config
         p["model"] = init_spacap(p["cfg"], seed=0, device=DEV)
         p["step"] = make_eval_step(p["cfg"], device=DEV)
+        p["step"].program.keep_graphs = True      # for the profiles' node counts
+        p["eager"] = make_eval_step(p["cfg"], device=DEV, capture=False)
     sd_u, sd_f = (paths[n]["model"].state_dict() for n in ("unfused", "fused"))
     if not all(torch.equal(sd_u[k], sd_f[k]) for k in sd_u):
         raise AssertionError("the two seeded models differ")
+    legs = [*paths, *(f"{n}_eager" for n in paths)]
 
-    def forward(name):
+    outs = {}
+
+    def forward(leg):
+        name = leg.removesuffix("_eager")
         p = paths[name]
+        step = p["eager" if leg.endswith("_eager") else "step"]
         before = {k: f.launches for k, f in KERNELS.items()}
-        out = p["step"](p["model"], batch)
+        outs[leg] = step(p["model"], batch)
         torch.cuda.synchronize()
         got = {k: f.launches - before[k] for k, f in KERNELS.items()}
-        if got != p["want"]:
-            raise AssertionError(f"{name} forward launched {got}, want {p['want']}")
-        return out
+        if got != wrapper_want(step, p["want"]):
+            raise AssertionError(f"{leg} forward: the wrappers counted {got}, want "
+                                 f"{wrapper_want(step, p['want'])}")
+        return outs[leg]
 
-    # each path's main run: every count set to 0 just before, read just after
-    launches, outs, shapes = {}, {}, {}
+    # each path's main run: every count set to 0 just before, read just
+    # after. Its first call captures (the wrappers count the warm-up's
+    # launches and the capture's), its second replays under the profiler:
+    # that replay's kernel spans by name are the launches of a forward
+    launches, wrapper_launches, shapes, profs = {}, {}, {}, {}
     for name in paths:
         for k in KERNELS.values():
             k.launches = 0
-        outs[name] = forward(name)
-        launches[name] = {k: f.launches for k, f in KERNELS.items()}
+        forward(name)
+        profs[name] = device_profile(lambda: forward(name), paths[name]["want"],
+                                     program=paths[name]["step"].program)
+        wrapper_launches[name] = {k: f.launches for k, f in KERNELS.items()}
+        launches[name] = profs[name]["kernel_spans"]
         shapes[name] = check_outputs(cfg, outs[name])
+        if paths[name]["step"].program.last["captured"]:
+            raise AssertionError(f"{name}: the main run captured again")
+        if launches[name] != paths[name]["want"]:
+            raise AssertionError(f"{name}: the replay's kernel spans {launches[name]}, "
+                                 f"want {paths[name]['want']}")
+        missing = [k for k, n in paths[name]["want"].items() if n and not wrapper_launches[name][k]]
+        if missing:
+            raise AssertionError(f"{name}: the main run never launched {missing}")
     tokens = compare_tokens(paths["unfused"], dev_batch, outs["unfused"]["lang_cap"],
                             outs["fused"]["lang_cap"])
 
     torch.cuda.reset_peak_memory_stats()
-    times = {name: [] for name in paths}
-    for name in ["unfused", "fused", "fused", "unfused"] * 5:   # in turns, one machine
+    times = {leg: [] for leg in legs}
+    for leg in (legs + legs[::-1]) * 5:   # in turns, one machine
         t0 = time.perf_counter()
-        forward(name)
-        times[name].append(time.perf_counter() - t0)
+        forward(leg)
+        times[leg].append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     splits = {name: {"trunk": [], "encode": [], "decode": [], "tail": []} for name in paths}
     for name in ["unfused", "fused", "fused", "unfused"] * 2:
         split_ms_once(paths[name], dev_batch, splits[name])
     summary = {}
-    for name in paths:
-        med = float(np.median(times[name]))
-        prof = device_profile(lambda: forward(name), paths[name]["want"])
+    for leg in legs:
+        name = leg.removesuffix("_eager")
+        med = float(np.median(times[leg]))
+        program = None if leg.endswith("_eager") else paths[name]["step"].program
+        prof = (profs[name] if program is not None
+                else device_profile(lambda: forward(leg), paths[name]["want"]))
         if "device_busy_ms" in prof:
             prof["device_busy_share"] = prof["device_busy_ms"] / (med * 1e3)
         split_ms = {k: float(np.median(v)) for k, v in splits[name].items()}
-        log("eval_forward", path=name, batch=B, num_points=cfg.num_points,
+        log("eval_forward", path=leg, batch=B, num_points=cfg.num_points,
             proposals=cfg.num_proposals, decode_dtype=cfg.eval_decode_dtype,
-            decode_stages=cfg.eval_decode_stages, launches=launches[name],
-            outputs=shapes[name], forward_s=med, forward_s_all=times[name],
-            scenes_per_s=B / med, split_ms=split_ms, peak_mem_gib=peak)
-        log("profile", path=name, **prof)
-        summary[name] = {"scenes_per_s": B / med, "decode_ms": split_ms["decode"],
-                         "device_busy_ms": prof.get("device_busy_ms"),
-                         "device_spans": prof.get("device_spans"),
-                         "ffn_kernel_ms": prof.get("kernel_device_ms", {}).get("ffn")}
+            decode_stages=cfg.eval_decode_stages, captured=program is not None,
+            launches=paths[name]["want"] if program is None else launches[name],
+            wrapper_launches=None if program is None else wrapper_launches[name],
+            outputs=shapes[name], forward_s=med,
+            forward_s_all=times[leg], scenes_per_s=B / med, eager_split_ms=split_ms,
+            peak_mem_gib=peak)
+        log("profile", path=leg, **prof)
+        summary[leg] = {"scenes_per_s": B / med, "forward_ms": med * 1e3,
+                        "decode_ms": split_ms["decode"],
+                        "device_busy_ms": prof.get("device_busy_ms"),
+                        "device_busy_share": prof.get("device_busy_share"),
+                        "device_spans": prof.get("device_spans"),
+                        "graph_spans": prof.get("graph_spans"), "check": prof.get("check"),
+                        "ffn_kernel_ms": prof.get("kernel_device_ms", {}).get("ffn")}
     busy = [summary[n]["device_busy_ms"] for n in ("unfused", "fused")]
     log("fused_vs_unfused", tokens=tokens, **summary,
         fused_minus_unfused_busy_ms=None if None in busy else busy[1] - busy[0])
-    return ({"fps": launches["unfused"]["fps"], "ball_query": launches["unfused"]["ball_query"],
-             "generator_argmax": launches["fused"]["generator_argmax"],
-             "ffn": launches["fused"]["ffn"], "ffn_partial": launches["fused"]["ffn_partial"]},
+    log("captured_vs_eager", **{name: {
+        "captured_scenes_per_s": summary[name]["scenes_per_s"],
+        "eager_scenes_per_s": summary[f"{name}_eager"]["scenes_per_s"],
+        "captured_over_eager": summary[name]["scenes_per_s"]
+        / summary[f"{name}_eager"]["scenes_per_s"],
+        "captured_busy_ms": summary[name]["device_busy_ms"],
+        "eager_busy_ms": summary[f"{name}_eager"]["device_busy_ms"]} for name in paths},
+        peak_mem_gib=peak)
+    main = {"fps": "unfused", "ball_query": "unfused", "generator_argmax": "fused",
+            "ffn": "fused", "ffn_partial": "fused"}
+    return ({k: launches[name][k] for k, name in main.items()},
+            {k: wrapper_launches[name][k] for k, name in main.items()},
             summary["unfused"]["scenes_per_s"])
+
+
+def wrapper_want(step, want):
+    """What the kernel wrappers count in one call of an eval step whose
+    forward launches ``want``: ``want`` where the call ran eagerly; for a
+    captured step (``step.program``), twice ``want`` where the call
+    captured (the eager warm-up, then the capture, which records each
+    launch into its graph) and nothing where it replayed: a replay runs no
+    Python, and its kernels are counted from their device spans
+    (``device_profile``)."""
+    program = getattr(step, "program", None)
+    times = 1 if program is None else 2 if program.last["captured"] else 0
+    return {k: times * n for k, n in want.items()}
+
+
+def cuda_graph_nodes(graph):
+    """The nodes of a captured graph (its ``raw_cuda_graph``, kept by a
+    program with ``keep_graphs``) by type, through the driver API."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what}: CUresult {err}")
+    check(lib.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(lib.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind, counts = ctypes.c_int(), collections.Counter()
+    for node in nodes[:n.value]:
+        check(lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        counts[GRAPH_NODE_TYPES.get(kind.value, "other")] += 1
+    return dict(counts)
+
+
+def last_key_graphs(program):
+    """The graphs of the key ``program`` ran last (the most recently used)."""
+    return next(reversed(program.entries.values())).graphs
+
+
+def replayed_nodes(program):
+    """The nodes of the graphs ``program`` replayed in its last call, by
+    type (None where that call did not replay)."""
+    if program is None or not program.last or program.last["captured"]:
+        return None
+    graphs, counts = last_key_graphs(program), collections.Counter()
+    for k in program.last["replayed"]:
+        counts.update(cuda_graph_nodes(graphs[k]))
+    return dict(counts)
+
+
+def differing(a, b):
+    """The keys of two output dicts whose tensors are not ``torch.equal``
+    (or that only one of them has)."""
+    return sorted(set(a) ^ set(b)) + [k for k in a if k in b and not torch.equal(a[k], b[k])]
+
+
+def table_batch(rng, cfg):
+    """A grid batch in point-table mode: CAPTURE_TABLE_SCENES scenes of
+    MUL_EVAL_POINTS points on the card, each row a scene and its subsample
+    (uint16 indices, past 32,767)."""
+    n = MUL_EVAL_POINTS
+    table = bench_points(rng, CAPTURE_TABLE_SCENES, n)[1]
+    batch = to_device_batch({
+        "scene_row": rng.randint(0, CAPTURE_TABLE_SCENES, B).astype(np.int32),
+        "pc_choices": np.stack([rng.choice(n, cfg.num_points, replace=False)
+                                for _ in range(B)]).astype(np.uint16)}, torch.device(DEV))
+    batch["point_table"] = torch.from_numpy(table).to(DEV)
+    batch["center_table"] = torch.from_numpy(
+        rng.rand(CAPTURE_TABLE_SCENES, 128, 3).astype(np.float32) * 6.0).to(DEV)
+    return batch
+
+
+def phase_captured_eval():
+    """The captured eval step (``make_eval_step``'s default on CUDA, a
+    ``train/capture.py::CapturedFunction``) against the eager one
+    (``capture=False``) at full width (default ModelConfig, B = 8, 40,000
+    points, seeded weights), unfused, fused, compact, in point-table mode,
+    and with the decode's early exit at 4 stages (a graph a stage: with the
+    seeded weights every stage runs; with the EOS logit raised the first
+    stage's test skips the rest). Gates, each path: the wrappers count a
+    forward's launches twice in the capture call (the eager warm-up, then
+    the capture) and not at all in a replay; a profiled replay's kernel
+    spans are FPS 2, ball query 5 and the decode kernels 0, or 31 and 192
+    fused; the outputs of the capture call and of the replays equal the
+    eager step's under ``torch.equal``, every key. On the unfused
+    path also: outputs kept from one replay are unchanged after
+    CAPTURE_LATER replays of other batches; parameters and BN buffers
+    updated in place reach the next replay (no recapture; its outputs equal
+    the eager step's on the new weights and differ from the old); a
+    replaced parameter recaptures (one graph set left). Logs the capture
+    seconds a key, the graphs and nodes of each replay, eager against
+    eager, and the peak memory with every path's graphs held."""
+    base = ModelConfig()
+    rng = np.random.RandomState(5)
+    batches = []
+    for _ in range(3):
+        _, pc = bench_points(rng, B, base.num_points)
+        batches.append(to_device_batch({"point_clouds": pc, "center_label": (
+            rng.rand(B, 128, 3) * 6.0).astype(np.float32)}, torch.device(DEV)))
+    n_steps = base.max_des_len + 1
+    plain = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0, "ffn_partial": 0}
+    fused = dict(plain, generator_argmax=n_steps,
+                 ffn=base.num_layers * (n_steps + int(base.early_guide)))
+    early = dataclasses.replace(base, eval_decode_early_exit=True, eval_decode_stages=4)
+    paths = {
+        "unfused": (base, False, plain, None),
+        "fused": (dataclasses.replace(base, eval_decode_fused=True), False, fused, None),
+        "compact": (base, True, plain, None),
+        "point_table": (base, True, plain, None),
+        "early_exit": (early, False, plain, None),
+        "early_exit_skip": (early, False, plain, CAPTURE_EOS_BIAS),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held, results = [], {}
+
+    def counted(step, model, batch, want, what):
+        for k in KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = step(model, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: f.launches for k, f in KERNELS.items()}
+        if got != wrapper_want(step, want):
+            raise AssertionError(f"captured_eval {what}: the wrappers counted {got}, want "
+                                 f"{wrapper_want(step, want)}")
+        return out, wall
+
+    for name, (cfg, compact, want, eos_bias) in paths.items():
+        model = init_spacap(cfg, seed=0, device=DEV)
+        if eos_bias is not None:
+            with torch.no_grad():
+                model.caption.model.generator.proj.bias[EOS_ID] += eos_bias
+        step = make_eval_step(cfg, device=DEV, compact=compact)
+        step.program.keep_graphs = True
+        eager = make_eval_step(cfg, device=DEV, compact=compact, capture=False)
+        batch = table_batch(rng, cfg) if name == "point_table" else batches[0]
+        warm, capture_wall = counted(step, model, batch, want, f"{name} capture")
+        captured = dict(step.program.last)
+        replay, replay_wall = counted(step, model, batch, want, f"{name} replay")
+        replayed = dict(step.program.last)
+        # a profiled replay: its kernel spans by name are its launches
+        profiled = []
+        prof = device_profile(lambda: profiled.append(counted(
+            step, model, batch, want, f"{name} profiled replay")), want, program=step.program)
+        want_out = eager(model, batch)
+        again = eager(model, batch)
+        graphs = last_key_graphs(step.program)
+        res = {"capture_s": captured["capture_s"], "capture_call_s": capture_wall,
+               "graphs": len(graphs), "graph_nodes": [cuda_graph_nodes(g) for g in graphs],
+               "replayed_graphs": replayed["replayed"], "replay_call_s": replay_wall,
+               "launches": prof["kernel_spans"], "profile_check": prof.get("check"),
+               "graph_spans": prof.get("graph_spans"), "graph_nodes_replayed":
+               prof.get("graph_nodes"), "device_busy_ms": prof.get("device_busy_ms"),
+               "replay_vs_eager": differing(replay, want_out),
+               "profiled_replay_vs_eager": differing(profiled[-1][0], want_out),
+               "warm_up_vs_eager": differing(warm, want_out),
+               "eager_vs_eager": differing(want_out, again)}
+        if not captured["captured"] or replayed["captured"]:
+            raise AssertionError(f"captured_eval {name}: capture {captured}, replay {replayed}")
+        if prof["kernel_spans"] != want:
+            raise AssertionError(f"captured_eval {name}: the replay's kernel spans "
+                                 f"{prof['kernel_spans']}, want {want}")
+        if name == "early_exit_skip":
+            res["all_eos"] = bool((want_out["lang_cap"] == EOS_ID).all())
+            if len(replayed["replayed"]) != 2 or not res["all_eos"]:
+                raise AssertionError(f"captured_eval {name}: graphs {replayed['replayed']} "
+                                     f"replayed, all EOS {res['all_eos']}")
+        elif name == "early_exit" and len(replayed["replayed"]) != len(graphs):
+            raise AssertionError(f"captured_eval {name}: graphs {replayed['replayed']} replayed")
+        if name == "unfused":
+            res.update(unfused_extras(step, eager, model, batches, want))
+        results[name] = res
+        log("captured_eval", path=name, **res)
+        if any(res.get(k) for k in ("replay_vs_eager", "profiled_replay_vs_eager",
+                                    "warm_up_vs_eager", "kept_changed", "updated_vs_eager",
+                                    "replaced_vs_eager")):
+            raise AssertionError(f"captured_eval {name}: outputs differ: {res}")
+        held.append((step, model))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("captured_eval", graphs_held=sum(len(s.program.entries) for s, _ in held),
+        peak_mem_gib_with_graphs=peak,
+        reserved_gib=torch.cuda.memory_reserved() / 2 ** 30)
+    del held
+    torch.cuda.empty_cache()
+    return results
+
+
+def unfused_extras(step, eager, model, batches, want):
+    """Kept outputs, in-place updates and a replaced parameter (see
+    ``phase_captured_eval``) on the unfused path."""
+    res = {}
+    kept = step(model, batches[1])
+    kept_want = eager(model, batches[1])
+    for j in range(CAPTURE_LATER):
+        step(model, batches[j % 3])
+    torch.cuda.synchronize()
+    res["kept_changed"] = differing(kept, kept_want)
+    before = step(model, batches[0])
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.mul_(1.01)
+        for name, buf in model.named_buffers():
+            if name.endswith("running_var"):
+                buf.copy_(buf * 1.02)
+    updated = step(model, batches[0])
+    res["updated_recaptured"] = step.program.last["captured"]
+    res["updated_vs_eager"] = differing(updated, eager(model, batches[0]))
+    res["updated_moved"] = differing(updated, before)
+    if res["updated_recaptured"] or not res["updated_moved"]:
+        raise AssertionError(f"captured_eval: an in-place update recaptured "
+                             f"({res['updated_recaptured']}) or moved nothing")
+    head = model.proposal.proposal[6]
+    bias = head.bias.detach().clone()
+    bias[1] += 2.0
+    head.bias = torch.nn.Parameter(bias)
+    step(model, batches[0])
+    res["replaced_recaptured"] = step.program.last["captured"]
+    replaced = step(model, batches[0])
+    res["replaced_vs_eager"] = differing(replaced, eager(model, batches[0]))
+    res["graph_sets_after_replace"] = len(step.program.entries)
+    if not res["replaced_recaptured"] or res["graph_sets_after_replace"] != 1:
+        raise AssertionError(f"captured_eval: a replaced parameter: {res}")
+    return res
 
 
 @contextlib.contextmanager
@@ -1061,7 +1356,7 @@ def runtime_calls(events, kinds=("LaunchKernel", "Memcpy")):
                    and any(k in e.name for k in kinds)), key=lambda e: e.time_range.start)
 
 
-def device_profile(fn, want, tries=3):
+def device_profile(fn, want, tries=3, program=None):
     """One call of ``fn`` under torch.profiler: the device's busy time (the
     union of its kernel and copy spans), their count, and the kernels with
     the most device time.
@@ -1075,11 +1370,19 @@ def device_profile(fn, want, tries=3):
     and every copy ``fn`` made (a runtime call and its device span share a
     correlation id) has its span, the host-to-device copies among them
     included, and each PROFILED kernel's spans number the launches ``fn``
-    made (``want``; ``fn`` checks its launch counts). An incomplete profile
-    is taken again, up to ``tries`` times, and logs the calls that lost
-    their spans (the runtime call, the op that made it and, for FPS, its
-    site); if none is complete, no busy time is reported and the result
-    names what each try lost."""
+    made (``want``: launches of one forward; ``fn`` checks the wrappers'
+    counts). Where ``fn`` replays the graphs of a captured step
+    (``program``, its ``CapturedFunction``, which keeps its graphs:
+    ``keep_graphs``), each graph launch's kernels share that launch's
+    correlation id: the spans of the window's graph launches must then
+    number the kernel, copy and memset nodes of the graphs the call
+    replayed, read from those graphs (``replayed_nodes``; ``check``: "graph
+    nodes", else "launch calls"). The kernel spans by name are then the
+    launches of the replayed forward on the card. An incomplete profile is
+    taken again, up to ``tries`` times, and logs the calls that lost their
+    spans (the runtime call, the op that made it and, for FPS, its site);
+    if none is complete, no busy time is reported and the result names
+    what each try lost."""
     lost_by_try = []
     for attempt in range(tries):
         with fps_sites(), profile(activities=[ProfilerActivity.CPU,
@@ -1091,9 +1394,15 @@ def device_profile(fn, want, tries=3):
             t0 = time.perf_counter()
             fn()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        nodes = replayed_nodes(program)
+        replayed = nodes is not None
+        graph_want = (sum(nodes.get(k, 0) for k in GRAPH_NODE_TYPES.values())
+                      if replayed else None)
         events = p.events()
-        device = {e.id: e for e in events if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)}
+        device_events = [e for e in events if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)]
+        device = {e.id: e for e in device_events}
+        per_id = collections.Counter(e.id for e in device_events)
         marker = next(e for e in events if e.name == "profile_window_marker"
                       and e.device_type == DeviceType.CPU)
         calls = runtime_calls(events)
@@ -1105,29 +1414,36 @@ def device_profile(fn, want, tries=3):
         window = [c for c in calls if c.time_range.start > marker.time_range.end]
         lost = [{"call": c.name, "op": c.cpu_parent.name if c.cpu_parent else None}
                 for c in window if c.id not in device]
+        graph_calls = [c for c in runtime_calls(events, ("GraphLaunch",))
+                       if c.time_range.start > marker.time_range.end]
+        graph_spans = sum(per_id[c.id] for c in graph_calls)
         copies = [c for c in window if "Memcpy" in c.name]
         htod = [device[c.id] for c in copies if c.id in device and "HtoD" in device[c.id].name]
         opened = marker_span.time_range.end if marker_span is not None else float("inf")
         # kernels and copies; not the ranges that annotate them (the
         # optimizer's step is one)
-        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in device.values()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in device_events
                        if e.time_range.start >= opened)
         counted = {k: sum(pat in name for _, _, name in spans) for k, pat in PROFILED.items()}
         copy_counts = {"copy_calls": len(copies), "copy_spans": sum(c.id in device for c in copies),
                        "htod_spans": len(htod)}
-        if marker_span is not None and not lost and counted == want:
+        graphs = {"check": "graph nodes" if replayed else "launch calls",
+                  "graph_launches": len(graph_calls), "graph_spans": graph_spans,
+                  "graph_nodes": graph_want}
+        if (marker_span is not None and not lost and counted == want
+                and graph_spans == (graph_want or 0)):
             break
         lost_by_try.append({"marker_span": marker_span is not None, "lost": lost[:12],
                             "markers_lost": head_lost, "lost_calls": len(lost),
-                            "kernel_spans": counted})
+                            "kernel_spans": counted, **graphs})
         log("profile", incomplete=True, attempt=attempt, marker_span=marker_span is not None,
             markers_lost=head_lost, lost_calls=len(lost), lost=lost[:12], kernel_spans=counted,
-            launches=want,
+            launches=want, **graphs,
             device_spans=len(spans), window_calls=len(window), **copy_counts,
             fps_launches=fps_launch_report(events))
     else:
         return {"device_busy": f"not measured: each of {tries} profiles lost spans",
-                "lost_by_try": lost_by_try, "kernel_spans": counted, "launches": want}
+                "lost_by_try": lost_by_try, "kernel_spans": counted, "launches": want, **graphs}
     busy_us, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         if e > end:
@@ -1139,7 +1455,7 @@ def device_profile(fn, want, tries=3):
             for k, pat in PROFILED.items()}
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
             "device_spans": len(spans), "kernel_spans": counted, "window_calls": len(window),
-            **copy_counts, "markers_lost": head_lost, "incomplete_profiles": attempt,
+            **copy_counts, **graphs, "markers_lost": head_lost, "incomplete_profiles": attempt,
             "lost_by_try": lost_by_try,
             "kernel_device_ms": ours,
             "top_device_ms": [[name[:90], t / 1e3] for name, t in top]}
@@ -1300,14 +1616,15 @@ def mul_eval_dataset(anns, store, vocab, num_scenes):
     return ds, anns
 
 
-def counted_step(step, per_forward):
-    """``step`` that appends each call's launches of every kernel to
-    ``per_forward`` (the wrappers count on the calling thread, the grid's
-    main thread)."""
+def counted_step(step, per_forward, want):
+    """``step`` that appends to ``per_forward`` each call's counts of every
+    kernel's launches (the wrappers count on the calling thread, the grid's
+    main thread) and what they should be (``wrapper_want``)."""
     def run(model, batch):
         before = {k: f.launches for k, f in KERNELS.items()}
         out = step(model, batch)
-        per_forward.append({k: f.launches - before[k] for k, f in KERNELS.items()})
+        per_forward.append(({k: f.launches - before[k] for k, f in KERNELS.items()},
+                            wrapper_want(step, want)))
         return out
     return run
 
@@ -1326,31 +1643,36 @@ def phase_mul_eval(forward_scenes_per_s):
     shuffled) give equal per-seed rows, at min_iou 0.05 so that
     candidates survive, and the seeds' rows differ; the point table's
     uint16 indices pass 32,767; every grid forward launches FPS 2, ball
-    query 5 and the decode kernels 0 times; every metric is finite. Then
+    query 5 and the decode kernels 0 times (as the wrappers count them:
+    ``wrapper_want``); every metric is finite. Then
     the grid over
     141 scenes x MUL_EVAL_SEEDS seeds, cold (a fresh dataset each repeat),
     as bench.py times it: rows over the wall time of the whole call, the
-    median of MUL_EVAL_REPEATS, with each repeat's phases. Each repeat runs
-    two host legs in turns, the host library and its plain numpy versions
-    (``host_leg``), whose rows must equal the first repeat's; each leg's
-    rows/s, ``table_s``, ``launch_s`` and ``post_s`` are logged. The first
-    repeat's library leg is the counted run (every count set to 0 just
-    before). Returns its launches."""
+    median of MUL_EVAL_REPEATS, with each repeat's phases. The grid runs
+    the default (captured) compact step; the gate's grid also runs the
+    eager one (``capture=False``), whose rows must be equal. Each repeat
+    runs three legs in turns: the captured step with the host library and
+    with its plain numpy versions (``host_leg``), and the eager step with
+    the library; their rows must equal the first repeat's; each leg's
+    rows/s, ``table_s``, ``launch_s`` and ``post_s`` are logged. The gate's
+    first grid is the counted run (every count set to 0 just before; its
+    first call captures). Returns its launches."""
     cfg = ModelConfig()
     model = init_spacap(cfg, seed=0, device=DEV)
     with torch.no_grad():
         model.proposal.proposal[6].bias[1] += 2.0
     grid_step = make_eval_step(cfg, device=DEV, compact=True)
+    eager_step = make_eval_step(cfg, device=DEV, compact=True, capture=False)
     per_forward = []
     want = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0, "ffn_partial": 0}
     meteor = Meteor()
     meteor.close()
 
     def forwards_ok(what):
-        bad = [d for d in per_forward if d != want]
+        bad = [(got, expected) for got, expected in per_forward if got != expected]
         if bad or not per_forward:
-            raise AssertionError(f"{what}: {len(bad)} of {len(per_forward)} forwards launched "
-                                 f"other than {want}: {bad[:3]}")
+            raise AssertionError(f"{what}: {len(bad)} of {len(per_forward)} forwards counted "
+                                 f"other than they should (counted, want): {bad[:3]}")
         n = len(per_forward)
         per_forward.clear()
         return n
@@ -1366,13 +1688,21 @@ def phase_mul_eval(forward_scenes_per_s):
         ds, gate_anns = mul_eval_dataset(anns, store, vocab, MUL_EVAL_GATE_SCENES)
         corpus, organized = prepare_corpus(gate_anns), organize_annotations(gate_anns)
         rows, timings = {}, {}
-        for table in ("auto", "off"):
+        for table, step in (("auto", grid_step), ("off", grid_step), ("eager", eager_step)):
             timings[table] = {}
+            if table == "auto":         # the counted run: its first call captures
+                for k in KERNELS.values():
+                    k.launches = 0
             rows[table] = mul_eval_grid(
-                counted_step(grid_step, per_forward), model, ds, vocab, dc, corpus, organized,
+                counted_step(step, per_forward, want), model, ds, vocab, dc, corpus, organized,
                 MUL_EVAL_GATE_SEEDS, B, min_iou=MUL_EVAL_GATE_IOU, timing_out=timings[table],
-                point_table=table, device=DEV)
-            forwards_ok(f"gate grid, point_table={table}")
+                point_table="off" if table == "off" else "auto", device=DEV)
+            if table == "auto":
+                launches = {k: f.launches for k, f in KERNELS.items()}
+                missing = [k for k, n in want.items() if n and not launches[k]]
+                if missing:
+                    raise AssertionError(f"the counted grid never launched {missing}")
+            forwards_ok(f"gate grid, {table}")
         if not timings["auto"]["point_table"] or timings["off"]["point_table"]:
             raise AssertionError(f"point tables: {timings}")
         # the serial protocol in scene order, and shuffled: its batches then
@@ -1389,7 +1719,8 @@ def phase_mul_eval(forward_scenes_per_s):
                     device=DEV)
                 serial[shuffle].append(numeric(metrics, seed))
                 matched.append(sum(c != ["sos eos"] for c in candidates.values()))
-        equal = {"off": rows["off"] == rows["auto"], "serial": serial[False] == rows["auto"],
+        equal = {"off": rows["off"] == rows["auto"], "eager": rows["eager"] == rows["auto"],
+                 "serial": serial[False] == rows["auto"],
                  "serial_shuffled": serial[True] == rows["auto"]}
         choices = ds.getitem_cached(0, np.random.RandomState(0), with_points=False)["pc_choices"]
         log("mul_eval", gate="rows", scenes=MUL_EVAL_GATE_SCENES, seeds=MUL_EVAL_GATE_SEEDS,
@@ -1416,40 +1747,38 @@ def phase_mul_eval(forward_scenes_per_s):
             i, np.random.RandomState(i), with_points=False)["pc_choices"] for i in range(B)]),
             "scene_row": tables[2][:B]}, torch.device(DEV))
         batch.update(point_table=tables[0], center_table=tables[1])
-        launch_ms, forward_ms = [], []
+        launch_ms, forward_ms = {"captured": [], "eager": []}, {"captured": [], "eager": []}
         for _ in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            grid_step(model, batch)
-            launch_ms.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
-            forward_ms.append((time.perf_counter() - t0) * 1e3)
+            for leg, step in (("captured", grid_step), ("eager", eager_step)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(model, batch)
+                launch_ms[leg].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                forward_ms[leg].append((time.perf_counter() - t0) * 1e3)
         del batch, tables
 
         corpus, organized = prepare_corpus(full_anns), organize_annotations(full_anns)
         seeds = list(range(MUL_EVAL_SEEDS))
-        rps = {"library": [], "plain": []}
-        repeats = {"library": [], "plain": []}
+        legs = ("library", "plain", "eager")
+        rps = {leg: [] for leg in legs}
+        repeats = {leg: [] for leg in legs}
         want_rows = None
         for rep in range(MUL_EVAL_REPEATS):
-            # the host legs in turns: the library, then the plain versions
-            # swapped in (and the other way round on odd repeats)
-            for leg in ("library", "plain") if rep % 2 == 0 else ("plain", "library"):
+            # the legs in turns, their order rotated a repeat: the captured
+            # step with the library, with the plain versions swapped in, and
+            # the eager step with the library
+            for leg in legs[rep % 3:] + legs[:rep % 3]:
                 ds, _ = mul_eval_dataset(anns, store, vocab, MUL_EVAL_SCENES)
-                counted = rep == 0 and leg == "library"
-                if counted:
-                    for k in KERNELS.values():
-                        k.launches = 0
                 timing, host_calls = {}, {}
-                with host_leg(leg, host_calls):
+                step = eager_step if leg == "eager" else grid_step
+                with host_leg("plain" if leg == "plain" else "library", host_calls):
                     t0 = time.perf_counter()
-                    rows = mul_eval_grid(counted_step(grid_step, per_forward), model, ds, vocab,
-                                         dc, corpus, organized, seeds, B, num_workers=8,
+                    rows = mul_eval_grid(counted_step(step, per_forward, want), model, ds,
+                                         vocab, dc, corpus, organized, seeds, B, num_workers=8,
                                          score_workers=min(8, len(seeds)), timing_out=timing,
                                          device=DEV)
                     total_s = time.perf_counter() - t0
-                if counted:
-                    launches = {k: f.launches for k, f in KERNELS.items()}
                 forwards = forwards_ok(f"grid repeat {rep}, {leg}")
                 bad = [r for r in rows if not all(np.isfinite(v) for v in r.values())]
                 if len(rows) != len(seeds) or bad:
@@ -1469,17 +1798,21 @@ def phase_mul_eval(forward_scenes_per_s):
     phases = repeats["library"][med]
     legs = {leg: {"rows_per_s": float(np.median(rps[leg])),
                   **{k: float(np.median([r[k] for r in repeats[leg]]))
-                     for k in ("table_s", "launch_s", "post_s", "load_s", "fetch_s",
-                               "score_s", "total_s")},
+                     for k in ("table_s", "stream_s", "launch_s", "consume_s", "post_s",
+                               "load_s", "fetch_s", "score_s", "total_s")},
                   "host_calls": repeats[leg][0]["host_calls"]} for leg in rps}
-    log("mul_eval", host_legs=legs, rows_equal_across_legs=True,
-        library_over_plain_rows_per_s=legs["library"]["rows_per_s"] / legs["plain"]["rows_per_s"])
+    log("mul_eval", legs=legs, rows_equal_across_legs=True,
+        library_over_plain_rows_per_s=legs["library"]["rows_per_s"] / legs["plain"]["rows_per_s"],
+        captured_over_eager_rows_per_s=legs["library"]["rows_per_s"] / legs["eager"]["rows_per_s"],
+        launch_ms_per_forward={leg: legs[leg]["launch_s"] / phases["forwards"] * 1e3
+                               for leg in legs})
     log("mul_eval", mul_eval_e2e_rows_per_sec=float(np.median(rps["library"])),
         rows_per_sec_all=rps["library"], scenes=MUL_EVAL_SCENES, seeds=MUL_EVAL_SEEDS,
         repeats=MUL_EVAL_REPEATS, batch=B, num_points=cfg.num_points,
         vocab_size=cfg.vocab_size, decode_dtype=cfg.eval_decode_dtype, min_iou=EVAL_MIN_IOU,
         phases=phases, grid_launch_ms_per_forward=phases["launch_s"] / phases["forwards"] * 1e3,
-        alone_launch_ms=launch_ms[1:], alone_forward_ms=forward_ms[1:],
+        alone_launch_ms={k: v[1:] for k, v in launch_ms.items()},
+        alone_forward_ms={k: v[1:] for k, v in forward_ms.items()},
         eval_forward_scenes_per_s=forward_scenes_per_s,
         launches=launches, meteor_is_exact=meteor.is_exact)
     return launches
@@ -2068,6 +2401,7 @@ def phase_multiview(default_forward_scenes_per_s, default_train):
         paths[name] = {"cfg": c, "model": init_spacap(c, seed=0, device=DEV),
                        "step": make_eval_step(c, device=DEV),
                        "batch": {"point_clouds": pc, "center_label": batch["center_label"]}}
+        paths[name]["step"].program.keep_graphs = True    # for the profiles' node counts
 
     def forward(name):
         p = paths[name]
@@ -2075,8 +2409,9 @@ def phase_multiview(default_forward_scenes_per_s, default_train):
         out = p["step"](p["model"], p["batch"])
         torch.cuda.synchronize()
         got = {k: f.launches - before[k] for k, f in KERNELS.items()}
-        if got != want:
-            raise AssertionError(f"{name} forward launched {got}, want {want}")
+        if got != wrapper_want(p["step"], want):
+            raise AssertionError(f"{name} forward: the wrappers counted {got}, want "
+                                 f"{wrapper_want(p['step'], want)}")
         return out
 
     for k in KERNELS.values():
@@ -2094,7 +2429,7 @@ def phase_multiview(default_forward_scenes_per_s, default_train):
     summary = {}
     for name in paths:
         med = float(np.median(times[name]))
-        prof = device_profile(lambda: forward(name), want)
+        prof = device_profile(lambda: forward(name), want, program=paths[name]["step"].program)
         summary[name] = {"forward_s": med, "scenes_per_s": B / med,
                          "device_busy_ms": prof.get("device_busy_ms"),
                          "device_spans": prof.get("device_spans"),
@@ -2149,9 +2484,10 @@ def cli_split(root):
 class CliCalls:
     """Counting shims for the factories the CLIs build their steps with:
     every call of a built step records its kind, its start time, each
-    kernel's launches and, for a train step, the batch's ``dataset_idx``.
-    Installed on the modules the CLIs read them from while the ``with``
-    lasts."""
+    kernel's launches as the wrappers count them and what they should be
+    (``wrapper_want``) and, for a train step, the batch's ``dataset_idx``.
+    A shim keeps its step's ``program``. Installed on the modules the CLIs
+    read them from while the ``with`` lasts."""
 
     SITES = ((solver_module, "make_train_step", "train_step"),
              (solver_module, "make_eval_step", "val_forward"),
@@ -2172,9 +2508,11 @@ class CliCalls:
                 self.calls.append({
                     "kind": kind, "t0": t0,
                     "launches": {k: f.launches - before[k] for k, f in KERNELS.items()},
+                    "want": wrapper_want(step, CLI_WANT),
                     "dataset_idx": (args[1]["dataset_idx"].tolist()
                                     if kind == "train_step" else None)})
                 return out
+            run.program = getattr(step, "program", None)
             return run
         return factory
 
@@ -2191,13 +2529,14 @@ class CliCalls:
     def take(self, kind=None):
         """The calls so far (of ``kind``), which are then forgotten; raises
         unless each launched FPS 2, ball query 5 and the decode kernels 0
-        times."""
+        times (as the wrappers count them: ``wrapper_want``)."""
         got = [c for c in self.calls if kind is None or c["kind"] == kind]
         self.calls = [c for c in self.calls if c not in got]
-        bad = [c for c in got if c["launches"] != CLI_WANT]
+        bad = [c for c in got if c["launches"] != c["want"]]
         if bad or not got:
-            raise AssertionError(f"{kind or 'cli'}: {len(bad)} of {len(got)} calls launched "
-                                 f"other than {CLI_WANT}: {[c['launches'] for c in bad[:3]]}")
+            raise AssertionError(f"{kind or 'cli'}: {len(bad)} of {len(got)} calls counted "
+                                 f"other than they should (counted, want): "
+                                 f"{[(c['launches'], c['want']) for c in bad[:3]]}")
         return got
 
 
@@ -2247,9 +2586,19 @@ def save_records(solver, steps):
 
 
 def train_cli_run(calls, snap, argv, what):
+    """The train CLI on ``argv``; logs its steps, validations and saves, and
+    the card's memory: reserved at the end (the validations' graphs
+    dropped) and the run's peak reserved and allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     solver = train_cli.main(argv)
     wall_s = time.perf_counter() - t0
+    memory = {"reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+              "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+              "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "graph_sets_held": (len(solver.eval_step.program.entries)
+                                  if solver.eval_step.program is not None else 0)}
     snap.check(solver)
     steps, vals = calls.take("train_step"), calls.take("val_forward")
     with open(os.path.join(solver.root, "all_scalars.json")) as f:
@@ -2266,7 +2615,7 @@ def train_cli_run(calls, snap, argv, what):
         mean_fetch_ms=float(np.mean(solver.timing["fetch"])) * 1e3,
         validation_wall_s=solver.timing["val"], saves=save_records(solver, steps),
         loss_first_last=[losses["train/loss"][0], losses["train/loss"][-1]],
-        best=solver.best)
+        best=solver.best, **memory)
     return solver, steps
 
 
@@ -2711,7 +3060,12 @@ def phase_parallel(smi, ranks=2, backend="gloo"):
                                   score_workers=4, device=DEV)
         one_s = time.perf_counter() - t0
         launches["P4_grid_forward"] = [c for g in grid for c in g["launches"]]
-        check_launches("P4", launches["P4_grid_forward"])
+        # each forward as the wrappers count it: eagerly, or twice where it
+        # captured a graph and not at all where it replayed one
+        for g in grid:
+            for got, captured in zip(g["launches"], g["captured"]):
+                times = 1 if captured is None else 2 if captured else 0
+                check_launches("P4", [got], {k: times * n for k, n in CLI_WANT.items()})
         log("parallel", leg="P4", seeds=seeds, scenes=PARALLEL_GRID_SCENES,
             local_seeds=[g["local_seeds"] for g in grid], forwards=[g["forwards"] for g in grid],
             rank_grid_s=[g["seconds"] for g in grid], one_process_grid_s=one_s,
@@ -2806,7 +3160,8 @@ def main() -> int:
 
     per_shape = phase_kernels()
     per_shape.update(phase_decode_kernels())
-    launches, forward_scenes_per_s = phase_eval_forward()
+    launches, wrapper_launches, forward_scenes_per_s = phase_eval_forward()
+    phase_captured_eval()
     train_launches, train_summary = phase_train_step()
     phase_cpu_vs_gpu()
     phase_cpu_vs_gpu_train()
@@ -2825,9 +3180,10 @@ def main() -> int:
         "ffn_partial": ("spacap3d_tpu_torch/csrc/decode.cu",
                         "spacap3d_tpu/ops/decode_pallas.py:127"),
     }
-    # the partial-sum kernel's path is P3's fused TP eval forward: rank 0's
-    # count, set to 0 just before that forward and read just after
+    # the partial-sum kernel's path is P3's fused TP eval forward (eager):
+    # rank 0's count, set to 0 just before that forward and read just after
     launches["ffn_partial"] = parallel_launches["P3_tp_fused_eval"][0]["ffn_partial"]
+    wrapper_launches["ffn_partial"] = launches["ffn_partial"]
     kernels = []
     for name, rows in per_shape.items():
         # per call, summed over the distinct shapes the main path gives it
@@ -2839,6 +3195,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
+            "wrapper_launches": wrapper_launches[name],
             "train_launches": train_launches[name],
             "multiview_launches": {run: per[name] for run, per in multiview_launches.items()},
             "mul_eval_launches": mul_eval_launches[name],

@@ -283,6 +283,11 @@ def mul_eval_grid(
     # matching) — same as feed_scene_cap / the reference protocol
     ap_calcs: Dict[int, APCalculator] = (
         {s: APCalculator(0.5, dc.class2type) for s in seeds} if also_detection else {})
+    # each seed's (prediction, GT) by dataset index: AP depends on the order
+    # of its scans (ties in confidence), so they enter a seed's calculator in
+    # dataset order, as the serial protocol steps them, whichever consume
+    # thread finished first
+    ap_rows: Dict[int, Dict[int, Tuple]] = {s: {} for s in seeds}
 
     t0 = time.perf_counter()
     tables = _build_point_tables(dataset, dev) if point_table != "off" else None
@@ -311,8 +316,12 @@ def mul_eval_grid(
 
     def submit_seed(seed):
         """Seed complete: score it now, overlapped with the stream."""
-        ap_state = ((ap_calcs[seed].pred_map_cls, ap_calcs[seed].gt_map_cls)
-                    if also_detection else None)
+        ap_state = None
+        if also_detection:
+            for idx in sorted(ap_rows[seed]):
+                pred, gt = ap_rows[seed].pop(idx)
+                ap_calcs[seed].step([pred], [gt])
+            ap_state = (ap_calcs[seed].pred_map_cls, ap_calcs[seed].gt_map_cls)
         score_futures[seed] = score_pool.submit(
             _score_seed, (corpus, candidates[seed], meteor_scorer, ap_state, dc.class2type,
                           cider_refs))
@@ -334,13 +343,13 @@ def mul_eval_grid(
             scene_id = dataset.annotations[int(batch["dataset_idx"][b])]["scene_id"]
             final_k = resolve_winning_proposals(keep[b], det_ids[b], organized, scene_id)
             caps = {key: [vocab.decode(captions[b, k])] for key, k in final_k.items()}
-            updates.append((int(row_seed[b]), caps, b))
+            updates.append((int(row_seed[b]), caps, b, int(batch["dataset_idx"][b])))
         t_post = time.perf_counter()
         with lock:
-            for seed, caps, b in updates:
+            for seed, caps, b, idx in updates:
                 candidates[seed].update(caps)
                 if also_detection:
-                    ap_calcs[seed].step([preds[b]], [gts[b]])
+                    ap_rows[seed][idx] = (preds[b], gts[b])
                 seed_done_rows[seed] += 1
                 if seed_done_rows[seed] == rows_per_seed:
                     submit_seed(seed)

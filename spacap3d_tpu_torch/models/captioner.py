@@ -32,8 +32,9 @@ its relation head, and the eval path's greedy decode.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -53,6 +54,7 @@ from spacap3d_tpu_torch.models.core import (
     split_generators,
 )
 from spacap3d_tpu_torch.ops.nn_distance import nn_distance
+from spacap3d_tpu_torch.utils.segments import Segments, run_eager
 
 NEG_INF = -1e9
 
@@ -226,6 +228,17 @@ def decode_fused(cfg: ModelConfig, dd: torch.dtype, device: torch.device) -> boo
     return bool(cfg.eval_decode_fused) and dd == torch.bfloat16 and device.type == "cuda"
 
 
+def decode_plan(cfg: ModelConfig) -> List[Tuple[int, int]]:
+    """The greedy decode's stages as (first step, end step): the
+    ``eval_decode_stages`` cut of the JAX package's ``captioner_eval``
+    (its ``bounds``). Both the eager decode and a captured eval step run
+    them, one graph a stage where the early exit tests between them."""
+    n_steps = cfg.max_des_len + 1
+    n_stages = min(max(1, int(cfg.eval_decode_stages)), n_steps)
+    ends = [round(n_steps * (s + 1) / n_stages) for s in range(n_stages)]
+    return list(zip([0] + ends[:-1], ends))
+
+
 class _DecodeWeights:
     """The decoder's weights rounded to the decode dtype once per call and
     held in f32, so every matmul multiplies the rounded operands with f32
@@ -279,7 +292,8 @@ class _DecodeWeights:
         self.gen_b = rnd(model.generator.proj.bias)
         self.lut = rnd(lut)
         self.pe = rnd(sinusoid_pe(cfg.max_des_len + 4, cfg.d_model, lut.device))
-        self.sqrt_d = rnd(torch.tensor(math.sqrt(cfg.d_model), device=lut.device))
+        # a fill, not a host-to-device copy: a captured step builds this too
+        self.sqrt_d = rnd(torch.full((), math.sqrt(cfg.d_model), device=lut.device))
 
     def row(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """x @ w^T + b for a row-parallel layer: the partial products summed
@@ -287,6 +301,18 @@ class _DecodeWeights:
         if self.group is None:
             return dense(x, w, b)
         return reduce_from_group(dense(x, w), self.group) + b
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """A greedy decode between stages (``Captioner.begin_decode``)."""
+
+    w: _DecodeWeights
+    caches: list                     # per layer (k, v), each (R, h, Lmax, dk)
+    cross_kv: Optional[list]         # late guide: per layer (k, v) of the object token
+    offset: int                      # cache position of the first caption token
+    token: torch.Tensor              # (R,) int64: the last step's tokens
+    tokens: torch.Tensor             # (R, max_des_len + 1) int64, filled step by step
 
 
 class Captioner(nn.Module):
@@ -552,26 +578,79 @@ class Captioner(nn.Module):
         hid = self._step_hidden(w, token, i, caches, offset, cross_kv)
         return ops.generator_argmax(hid.to(w.dd), w.gen)
 
-    def greedy_decode(self, obj_token: torch.Tensor) -> torch.Tensor:
-        """obj_token (R, 1, d) f32 -> tokens (R, max_des_len + 1) int32."""
-        cfg = self.cfg
+    def begin_decode(self, obj_token: torch.Tensor) -> "DecodeState":
+        """``start_decode`` plus the SOS tokens and an empty (R, max_des_len
+        + 1) token buffer."""
         w, caches, cross_kv, offset = self.start_decode(obj_token)
-        n_steps = cfg.max_des_len + 1
-        n_stages = min(max(1, int(cfg.eval_decode_stages)), n_steps)
-        stage_ends = {round(n_steps * (s + 1) / n_stages) for s in range(n_stages)}
-        token = torch.full((obj_token.shape[0],), SOS_ID, dtype=torch.long,
-                           device=obj_token.device)
-        tokens = []
-        for i in range(n_steps):
-            token = self.next_token(w, token, i, caches, offset, cross_kv)
-            tokens.append(token)
-            if cfg.eval_decode_early_exit and i + 1 in stage_ends and i + 1 < n_steps:
-                # stage boundary: once every row has emitted EOS, the later
-                # stages' slots are EOS (the harness truncates at EOS)
-                if bool(torch.stack(tokens, 0).eq(EOS_ID).any(0).all()):
-                    tokens += [torch.full_like(token, EOS_ID)] * (n_steps - i - 1)
-                    break
-        return torch.stack(tokens, dim=1).to(torch.int32)
+        r, dev = obj_token.shape[0], obj_token.device
+        return DecodeState(w, caches, cross_kv, offset,
+                           torch.full((r,), SOS_ID, dtype=torch.long, device=dev),
+                           torch.empty((r, self.cfg.max_des_len + 1), dtype=torch.long,
+                                       device=dev))
+
+    def decode_stage(self, state: "DecodeState", start: int, end: int) -> None:
+        """Greedy steps start..end - 1, each token written to its slot."""
+        for i in range(start, end):
+            state.token = self.next_token(state.w, state.token, i, state.caches, state.offset,
+                                          state.cross_kv)
+            state.tokens[:, i] = state.token
+
+    @staticmethod
+    def decode_done(state: "DecodeState", end: int) -> torch.Tensor:
+        """The early exit's test at a stage end, a 0-dim bool on the device:
+        every row has emitted EOS in its first ``end`` steps."""
+        return state.tokens[:, :end].eq(EOS_ID).any(1).all()
+
+    @staticmethod
+    def skip_stages(state: "DecodeState", start: int) -> None:
+        """The skipped stages' slots from step ``start`` on are EOS (the
+        harness truncates at the first EOS), as the JAX package's
+        ``skip_stage`` fills them."""
+        state.tokens[:, start:].fill_(EOS_ID)
+
+    def decode_segments(self, begin: Callable[[Dict], torch.Tensor],
+                        end: Callable[[Dict, torch.Tensor], Any]) -> Segments:
+        """The greedy decode as ``Segments`` (``utils/segments.py``) in the
+        stages of ``decode_plan``: ``begin(carry)`` gives the object tokens
+        (R, 1, d) f32, and ``end(carry, tokens)`` the result from the (R,
+        max_des_len + 1) int32 tokens. With ``eval_decode_early_exit`` and
+        more than one stage it is a part a stage, each but the last ending
+        in the all-EOS test where the JAX package runs ``lax.cond``, whose
+        ``skip`` fills the later slots with EOS, and then ``end``; else one
+        part. ``greedy_decode`` runs it eagerly; the eval step puts its
+        trunk in ``begin`` and its tail in ``end``, eager or captured."""
+        plan = decode_plan(self.cfg)
+
+        def stage(carry, s):
+            self.decode_stage(carry["dec"], *plan[s])
+            return self.decode_done(carry["dec"], plan[s][1]) if s + 1 < len(plan) else None
+
+        def first(carry):
+            carry["dec"] = self.begin_decode(begin(carry))
+            return stage(carry, 0)
+
+        def finish(carry):
+            return end(carry, carry["dec"].tokens.to(torch.int32))
+
+        if not (self.cfg.eval_decode_early_exit and len(plan) > 1):
+            def whole(carry):            # no stage end is tested
+                carry["dec"] = self.begin_decode(begin(carry))
+                for start, stop in plan:
+                    self.decode_stage(carry["dec"], start, stop)
+                return finish(carry)
+            return Segments([whole])
+        return Segments([first, *(lambda carry, s=s: stage(carry, s) for s in range(1, len(plan))),
+                         finish],
+                        lambda carry, k: self.skip_stages(carry["dec"], plan[k][1]))
+
+    def greedy_decode(self, obj_token: torch.Tensor) -> torch.Tensor:
+        """obj_token (R, 1, d) f32 -> tokens (R, max_des_len + 1) int32:
+        ``decode_segments`` run eagerly. With ``eval_decode_early_exit`` the
+        host tests each stage end but the last, and once every row has
+        emitted EOS skips the rest."""
+        return run_eager(self.decode_segments(lambda carry: carry["inputs"]["obj"],
+                                              lambda carry, tokens: tokens),
+                         {"obj": obj_token})
 
     def forward(self, ep: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Greedy captions for every proposal: (B, K, max_des_len + 1) int32."""

@@ -12,11 +12,20 @@ _CORNER_SIGNS = (
 )
 
 
+def corner_signs(dtype: torch.dtype, device) -> torch.Tensor:
+    """``_CORNER_SIGNS`` made on ``device`` from an arange, not copied from
+    the host: a captured eval step (``train/capture.py``) builds them too,
+    and a capture refuses a copy from pageable host memory."""
+    i = torch.arange(8, device=device)
+    bits = torch.stack([(i // 2) % 2, ((i + 1) // 2) % 2, i // 4], dim=-1)
+    return (1 - 2 * bits).to(dtype)
+
+
 def get_3d_box_batch(box_size: torch.Tensor, heading_angle: Optional[torch.Tensor],
                      center: torch.Tensor) -> torch.Tensor:
     """box_size (..., 3) [l, w, h]; heading (...,) or None; center (..., 3)
     -> corners (..., 8, 3)."""
-    signs = torch.tensor(_CORNER_SIGNS, dtype=box_size.dtype, device=box_size.device)
+    signs = corner_signs(box_size.dtype, box_size.device)
     corners = (box_size * 0.5)[..., None, :] * signs
     if heading_angle is not None:
         c = torch.cos(heading_angle)[..., None]

@@ -418,7 +418,10 @@ class Worker:
                                            self.args.vocab, self.cfg, self.args.scenes)
         cfg = dataclasses.replace(self.cfg, vocab_size=len(vocab))
         model = self.fresh_model(cfg)
-        counted = {"forwards": 0, "launches": []}
+        # each forward's launches as the wrappers count them, and whether it
+        # ran eagerly (None), captured a graph (True: the warm-up and the
+        # capture each count the launches) or replayed one (False: no count)
+        counted = {"forwards": 0, "launches": [], "captured": []}
         base = make_eval_step(cfg, device=self.dev, compact=True)
 
         def step(m, b):
@@ -426,6 +429,8 @@ class Worker:
             out = base(m, b)
             counted["forwards"] += 1
             counted["launches"].append({k: f.launches - before[k] for k, f in KERNELS.items()})
+            counted["captured"].append(None if base.program is None
+                                       else base.program.last["captured"])
             return out
 
         seeds = [int(s) for s in self.args.seeds.split(",")]

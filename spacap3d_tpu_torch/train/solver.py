@@ -357,6 +357,11 @@ class Solver:
             corpus_cache=self._own_file("corpus_val.json"),
             pred_path=self._own_file("pred_val.json"),
             meteor_jar=self.meteor_jar, device=self.device)
+        program = getattr(self.eval_step, "program", None)
+        if program is not None:
+            # the validation's graphs would hold their memory pools through
+            # the training until the next validation: it captures anew
+            program.clear()
         if self.process_count > 1:
             # every rank scores the same captions, but a METEOR stage that
             # differs between hosts, or any rounding, could set one apart,

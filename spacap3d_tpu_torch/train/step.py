@@ -28,7 +28,9 @@ from spacap3d_tpu_torch.device import resolve_device
 from spacap3d_tpu_torch.models.core import set_batch_norm_group
 from spacap3d_tpu_torch.parallel.tp import average_replicated_gradients
 from spacap3d_tpu_torch.ops.nn_distance import nn_distance
+from spacap3d_tpu_torch.train.capture import CapturedFunction
 from spacap3d_tpu_torch.train.losses import NEAR_THRESHOLD, get_scene_cap_loss
+from spacap3d_tpu_torch.utils.segments import Segments, run_eager
 
 # metrics a train step returns (the reference Solver's log keys)
 METRIC_KEYS = (
@@ -112,23 +114,83 @@ def eval_tail(cfg: ModelConfig, ep: Dict[str, torch.Tensor],
     return {k: ep[k] for k in keys if k in ep}
 
 
-def make_eval_step(cfg: ModelConfig, device="cuda", compact: bool = False) -> Callable:
+def eval_segments(cfg: ModelConfig, compact: bool) -> Callable[[torch.nn.Module], Segments]:
+    """The eval forward of ``model`` as ``Segments`` (``utils/segments.py``):
+    the point-table gather, the trunk and the object tokens, the greedy
+    decode, then ``eval_tail``. The decode's parts are
+    ``Captioner.decode_segments``, which ``greedy_decode`` runs too: one
+    part, or with ``eval_decode_early_exit`` a part a stage of
+    ``decode_plan`` (the trunk in the first, the tail after the last), the
+    host's all-EOS test between them. Eager and captured steps run these
+    parts alike."""
+
+    def segments_of(model) -> Segments:
+        cap = None if model.cfg.no_caption else model.caption
+
+        def head(carry):
+            batch = carry["inputs"]
+            if "pc_choices" in batch:
+                batch = gather_point_table(batch)
+            carry["batch"] = batch
+            carry["ep"] = model.detect(batch["point_clouds"])
+            return None if cap is None else cap.object_tokens(carry["ep"])
+
+        def tail(carry, tokens):
+            ep = carry["ep"]
+            if tokens is not None:
+                b, k, _ = ep["aggregated_vote_features"].shape
+                ep["lang_cap"] = tokens.reshape(b, k, -1)
+            return eval_tail(cfg, ep, carry["batch"], compact)
+
+        if cap is None:
+            return Segments([lambda carry: tail(carry, head(carry))])
+        return cap.decode_segments(head, tail)
+
+    return segments_of
+
+
+def captured(capture: bool, device: torch.device, model=None) -> bool:
+    """Whether an eval step on ``device`` runs captured (``make_eval_step``'s
+    ``capture``): on CUDA unless ``capture`` is False; with ``model``, not
+    for a model whose captioner has a tensor-parallel group (its
+    all-reduces go through the host)."""
+    if model is not None and getattr(getattr(model, "caption", None), "tp_group", None) is not None:
+        return False
+    return capture and device.type == "cuda"
+
+
+def make_eval_step(cfg: ModelConfig, device="cuda", compact: bool = False,
+                   capture: bool = True) -> Callable:
     """Returns step(model, batch) -> output dict of tensors on ``device``.
 
     ``batch`` holds ``point_clouds`` (B, N, 3 + D) and ``center_label``
     (B, G, 3+), or the point-table keys ``point_table``, ``scene_row``,
-    ``pc_choices`` and ``center_table``."""
+    ``pc_choices`` and ``center_table``; numpy arrays or tensors, uploaded
+    to ``device`` first.
+
+    ``capture``: True captures on CUDA and runs eagerly on the CPU; False
+    runs eagerly. A captured step (``train/capture.py::CapturedFunction``,
+    the counterpart of the JAX package's ``jax.jit`` of its eval step)
+    replays the forward from CUDA graphs from the upload on: one graph, or
+    with the decode's early exit a graph a stage and the tail, the host's
+    all-EOS test between them. The point and centre tables are read where
+    they lie. A model cut by ``parallel/tp.py::shard_model`` runs eagerly:
+    its all-reduces go through the host. ``step.program`` is the captured
+    program (None when eager)."""
     dev = resolve_device(device)
+    segments_of = eval_segments(cfg, compact)
+    program = (CapturedFunction(segments_of, by_address=("point_table", "center_table"))
+               if captured(capture, dev) else None)
 
     @torch.no_grad()
     def step(model, batch) -> Dict[str, torch.Tensor]:
         batch = to_device_batch(batch, dev)
-        if "pc_choices" in batch:
-            batch = gather_point_table(batch)
         model.eval()
-        ep = model(batch["point_clouds"])
-        return eval_tail(cfg, ep, batch, compact)
+        if program is not None and captured(capture, dev, model):
+            return program(model, batch)
+        return run_eager(segments_of(model), batch)
 
+    step.program = program
     return step
 
 

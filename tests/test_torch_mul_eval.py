@@ -9,8 +9,10 @@ within the trunk's float tolerance give equal host decisions: per-seed
 rows are compared with ``==``. ``min_iou`` 0.05, so that random weights
 leave real, seed-dependent candidates (at 0.5 nothing survives and every
 seed scores the same all-backfill corpus)."""
+import itertools
 import os
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -169,6 +171,53 @@ def test_grid_rows_hold_under_thread_switching(both, grid_rows):
         sys.setswitchinterval(interval)
     assert rows[:2] == want
     assert rows[2] != rows[3] and timing["forwards"] == 12
+
+
+def test_ap_depends_on_the_order_of_tied_scans():
+    """Why the grid steps a seed's scans in dataset order: two scans whose
+    detections tie in confidence, a true one in the first and a false one
+    in the second, score AP 1 in that order and 0.5 the other way round."""
+    from spacap3d_tpu_torch.eval.detection import APCalculator
+
+    box = np.array([[x, y, z] for x in (0, 1) for y in (0, 1) for z in (0, 1)], np.float64)
+    scans = {"hit": ([(0, box, 0.5)], [(0, box)]), "miss": ([(0, box + 5.0, 0.5)], [])}
+    maps = []
+    for order in (("hit", "miss"), ("miss", "hit")):
+        calc = APCalculator(0.5)
+        for name in order:
+            calc.step([scans[name][0]], [scans[name][1]])
+        maps.append(calc.compute_metrics(num_workers=1)["mAP"])
+    assert maps == [pytest.approx(1.0, abs=1e-6), pytest.approx(0.5, abs=1e-6)]
+
+
+def test_grid_rows_hold_when_batches_finish_out_of_order(both, grid_rows, monkeypatch):
+    """A captured forward returns before its outputs exist, so the consume
+    threads finish batches out of their grid order; a seed's AP, which
+    depends on the order of its scans where confidences tie, takes them in
+    dataset order all the same. One row a batch; the first batch's fetch
+    waits until the second batch's has finished."""
+    want, _ = grid_rows
+    real, calls, order = mul_eval.fetch_outputs, itertools.count(), []
+    second_done = threading.Event()
+
+    def late(out):
+        n = next(calls)
+        if n == 0 and not second_done.wait(timeout=120):
+            raise TimeoutError("the second batch never finished")
+        fetched = real(out)
+        order.append(n)
+        if n == 1:
+            second_done.set()
+        return fetched
+
+    monkeypatch.setattr(mul_eval, "fetch_outputs", late)
+    anns, _, p = both
+    rows = mul_eval_grid(
+        make_eval_step(p["cfg"], device="cpu", compact=True), p["model"], p["ds"],
+        p["vocab"], p["dc"], prepare_corpus(anns), organize_annotations(anns), SEEDS,
+        batch_size=1, min_iou=MIN_IOU, num_workers=2, score_workers=2, device="cpu")
+    assert order[0] == 1 and sorted(order) == list(range(6))
+    assert rows == want
 
 
 def test_grid_spawns_one_meteor_process(both, monkeypatch):
