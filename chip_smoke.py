@@ -30,9 +30,15 @@ equal under ``torch.equal`` unfused, fused, compact, in point-table mode
 and with the decode's early exit, kept outputs, in-place weight updates,
 a replaced parameter; ``[captured_eval]`` lines), drives
 the train step at full width (``make_train_step``: TrainConfig(), B=8,
-40,000 points, dropout from a seeded CUDA generator) for 13 steps on one
-batch, with its launch counts, finite losses and gradients, a falling loss
-and its time, compares the port on the CPU with the port on the card at
+40,000 points, dropout from a seeded CUDA generator), captured, for 13
+steps on one batch, with its launch counts (a replay's from its profile),
+finite losses and gradients, a falling loss and its time, holds the
+captured train step to the eager one (``captured_train``: in a process of
+its own under deterministic algorithms, replays equal to eager steps bit
+for bit at dropout 0 and 0.1, masks included, and under detection
+pretraining's momenta and rate decay; then the two timed in turns, and a
+loaded optimizer state and a replaced parameter capturing anew;
+``[captured_train]`` lines), compares the port on the CPU with the port on the card at
 a reduced size, for the eval forward and for a train step, and drives the
 eval harness at full width (``mul_eval_grid``, ``eval_cap``) on a
 synthetic 141-scene val split: equal per-seed rows from the grid, its
@@ -70,6 +76,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -104,7 +111,6 @@ from spacap3d_tpu_torch.ops.ball_query import launch_ball_query
 from spacap3d_tpu_torch.parallel.mp_dryrun import GRID_MIN_IOU, grid_dataset, launch
 from spacap3d_tpu_torch.scripts import compute_multiview_features as mv_features_cli
 from spacap3d_tpu_torch.scripts import eval as eval_cli
-from spacap3d_tpu_torch.scripts import overfit_gate
 from spacap3d_tpu_torch.scripts import project_multiview_features as mv_project_cli
 from spacap3d_tpu_torch.scripts import project_multiview_labels as mv_labels_cli
 from spacap3d_tpu_torch.scripts import train as train_cli
@@ -116,6 +122,7 @@ from spacap3d_tpu_torch.train.solver import Solver
 from spacap3d_tpu_torch.train.step import (
     TRAIN_KEYS,
     eval_tail,
+    load_optimizer_state,
     make_eval_step,
     make_optimizer,
     make_train_step,
@@ -154,6 +161,14 @@ D_MODEL = 128
 # a train step's launches: the trunk's FPS and ball query, no decode kernel
 TRAIN_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0, "ffn_partial": 0}
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+# the captured_train phase: the captured train step against the eager one
+# over CAPTURED_TRAIN_STEPS steps in a process of its own under
+# deterministic algorithms (cuBLAS's workspace set before cuBLAS starts),
+# bit for bit; detection pretraining's leg at the solver's momenta of its
+# first three decay steps (0.5 halved), its rate decayed at updates 1 and 2
+CAPTURED_TRAIN_STEPS = 3
+CAPTURED_TRAIN_MOMENTA = (0.5, 0.25, 0.125)
+CUBLAS_DETERMINISTIC = ":4096:8"
 # CPU against GPU, one train step at dropout 0, from the same weights and
 # batch. Each loss within 5e-4 of itself (PARITY.md's tolerance) plus 1e-5
 # absolute: a term of the one positive proposal (heading_reg_loss, 0.0065;
@@ -193,7 +208,10 @@ MUL_EVAL_GATE_SCENES, MUL_EVAL_GATE_SEEDS, MUL_EVAL_GATE_IOU = 16, [0, 1], 0.05
 # an epoch at B = 8) and 8 val scenes, 2 of them for --eval_visualize; every
 # train step and forward of the CLIs launches FPS 2 and ball query 5 times;
 # the overfit gate at the JAX package's CI settings (tests/test_train_e2e.py:
-# 4 scenes, 250 epochs, CIDEr threshold 0.5 at its default min_iou 0.25)
+# 4 scenes, 250 epochs, CIDEr threshold 0.5 at its default min_iou 0.25), in
+# a process of its own under deterministic algorithms: the JAX test's CPU
+# run gives one score, and the CUDA backward's atomics otherwise move the
+# score from run to run across the gate's sharp transition
 CLI_TRAIN_SCENES, CLI_VAL_SCENES, CLI_VIS_SCENES = 16, 8, 2
 CLI_WANT = {"fps": 2, "ball_query": 5, "generator_argmax": 0, "ffn": 0, "ffn_partial": 0}
 # the train CLI's host legs draw equal batches, so their first losses agree
@@ -1859,36 +1877,40 @@ def phase_train_step():
 
 def run_train_steps(cfg, batch, what):
     """``make_train_step`` of ``cfg`` on one ``batch`` (numpy), TrainConfig(),
-    seeded weights and a seeded CUDA dropout generator (rate 0.1). The first
-    step is the counted run (every count set to 0 just before); 3 warm-up
-    steps, then 10 timed, each ending in a synchronise and launching FPS 2,
-    ball query 5 and the decode kernels 0 times. The split into forward,
-    loss, backward and optimizer comes from the timed steps' own CUDA
-    events. Gates: finite losses and metrics, every parameter's gradient
-    finite and not zero over the run, ``mean_size_arr`` unchanged, every
-    BN's running stats moved, and the best loss of the second half below
-    the first step's. Logs ``[what]`` and returns (launches, {step_ms,
-    peak_mem_gib, device_busy_ms})."""
+    seeded weights and a seeded CUDA dropout generator (rate 0.1), captured
+    (the default on CUDA: the first step runs eagerly and captures, the
+    others replay). The first step is the counted run (every count set to
+    0 just before); 3 warm-up steps, then 10 timed, each ending in a
+    synchronise, the wrappers counting FPS 2, ball query 5 and the decode
+    kernels 0 twice in the capture call and not at all in a replay
+    (``wrapper_want``); a profiled replay's kernel spans by name are the
+    step's launches. The split into forward, loss, backward and optimizer
+    is the eager step's (``phase_captured_train``). Gates: finite losses and
+    metrics, every parameter's gradient finite and not zero over the run,
+    ``mean_size_arr`` unchanged, every BN's running stats moved, and the
+    best loss of the second half below the first step's. Logs ``[what]``
+    and returns (launches, {step_ms, peak_mem_gib, device_busy_ms})."""
     tc = TrainConfig()
     batch = to_device_batch(batch, torch.device(DEV))
     model = init_spacap(cfg, seed=0, device=DEV)
     opt, sched = make_optimizer(model, tc, steps_per_epoch=1000)
     step = make_train_step(cfg, tc, opt, device=DEV, scheduler=sched)
+    step.program.keep_graphs = True
     gen = torch.Generator(device=DEV).manual_seed(0)
     msa, bn0 = model.mean_size_arr.clone(), bn_buffers(model)
     params = list(model.named_parameters())
     seen = torch.zeros(len(params), device=DEV)     # largest |g| of each leaf over the run
     finite = torch.ones(len(params), dtype=torch.bool, device=DEV)
     losses, times, last = [], [], {}
-    splits = {"forward": [], "loss": [], "backward": [], "optimizer": []}
 
-    def run(marks=None):
+    def run():
         before = {k: f.launches for k, f in KERNELS.items()}
-        metrics = step(model, batch, gen, 0.1, marks)
+        metrics = step(model, batch, gen, 0.1)
         torch.cuda.synchronize()
         got = {k: f.launches - before[k] for k, f in KERNELS.items()}
-        if got != TRAIN_WANT:
-            raise AssertionError(f"train step launched {got}, want {TRAIN_WANT}")
+        if got != wrapper_want(step, TRAIN_WANT):
+            raise AssertionError(f"train step: the wrappers counted {got}, want "
+                                 f"{wrapper_want(step, TRAIN_WANT)}")
         return metrics
 
     def check(metrics):
@@ -1908,20 +1930,20 @@ def run_train_steps(cfg, batch, what):
     for k in KERNELS.values():     # the counted run
         k.launches = 0
     check(run())
-    launches = {k: f.launches for k, f in KERNELS.items()}
+    wrapper_launches = {k: f.launches for k, f in KERNELS.items()}
+    capture_s = step.program.last["capture_s"]
     for _ in range(TRAIN_WARMUP - 1):
         check(run())
     torch.cuda.reset_peak_memory_stats()
     for _ in range(TRAIN_TIMED):
-        marks = []
         t0 = time.perf_counter()
-        metrics = run(marks)
+        metrics = run()
         times.append((time.perf_counter() - t0) * 1e3)
         check(metrics)
-        for j, name in enumerate(splits):
-            splits[name].append(marks[j].elapsed_time(marks[j + 1]))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof = device_profile(run, TRAIN_WANT)
+    # a profiled replay: its kernel spans by name are the step's launches
+    prof = device_profile(lambda: check(run()), TRAIN_WANT, program=step.program)
+    launches = prof["kernel_spans"]
     med = float(np.median(times))
     if "device_busy_ms" in prof:
         prof["device_busy_share"] = prof["device_busy_ms"] / med
@@ -1932,9 +1954,9 @@ def run_train_steps(cfg, batch, what):
     log(what, batch=B, num_points=cfg.num_points, proposals=cfg.num_proposals,
         input_feature_dim=cfg.input_feature_dim,
         dropout=cfg.transformer_dropout, lr=tc.lr, transformer_lr=tc.transformer_lr, wd=tc.wd,
-        launches=launches, warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_TIMED,
+        launches=launches, wrapper_launches=wrapper_launches, capture_s=capture_s,
+        warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_TIMED,
         step_ms=med, step_ms_all=times, train_scenes_per_s=B / (med / 1e3),
-        split_ms={k: float(np.median(v)) for k, v in splits.items()}, split_ms_all=splits,
         device_busy_ms=prof.get("device_busy_ms"), device_spans=prof.get("device_spans"),
         device_busy_share=prof.get("device_busy_share"),
         fps_device_ms=prof.get("kernel_device_ms", {}).get("fps"),
@@ -1953,8 +1975,341 @@ def run_train_steps(cfg, batch, what):
                              f"changed")
     if not min(losses[half:]) < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
+    if launches != TRAIN_WANT:
+        raise AssertionError(f"{what}: the replay's kernel spans {launches}, want {TRAIN_WANT}")
     return launches, {"step_ms": med, "peak_mem_gib": peak,
                       "device_busy_ms": prof.get("device_busy_ms")}
+
+
+@contextlib.contextmanager
+def recorded_masks():
+    """Within: every ``Tensor.bernoulli_`` (the dropout masks' draw in
+    ``models/core.py::dropout``) appends its result to the list it yields.
+    A mask drawn in a capture is the graph's tensor, which each replay
+    rewrites."""
+    real, masks = torch.Tensor.bernoulli_, []
+
+    def bernoulli_(self, *a, **kw):
+        masks.append(real(self, *a, **kw))
+        return masks[-1]
+
+    torch.Tensor.bernoulli_ = bernoulli_
+    try:
+        yield masks
+    finally:
+        torch.Tensor.bernoulli_ = real
+
+
+def adam_state(opt):
+    """Adam's state tensors by group, parameter index and name."""
+    return {f"{gi}.{pi}.{k}": v for gi, g in enumerate(opt.param_groups)
+            for pi, p in enumerate(g["params"]) for k, v in opt.state.get(p, {}).items()}
+
+
+def determinism_leg(cfg, tc, batches, momenta):
+    """CAPTURED_TRAIN_STEPS steps of the eager and of the captured train
+    step, each from seeded weights and a dropout generator seeded alike, on
+    ``batches`` at ``momenta``. Returns what the captured run did (its
+    calls' capture flags, its rates after each step, whether the
+    scheduler filled the rate tensors in place) and what differs from the
+    eager run under ``torch.equal``: each step's metrics and dropout masks
+    (``recorded_masks``; a capture call's first half are its warm-up's, its
+    second the graph's, which the replays rewrite), then the parameters,
+    Adam's state, the BN buffers and the caller's generator state; and
+    the parameters that got no gradient in the captured run, with those of
+    them that moved from their initial values in either run."""
+    runs = {}
+    for kind in ("eager", "captured"):
+        model = init_spacap(cfg, seed=0, device=DEV)
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt, sched = make_optimizer(model, tc, steps_per_epoch=1)
+        step = make_train_step(cfg, tc, opt, device=DEV, scheduler=sched,
+                               capture=kind == "captured")
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        rates = [g["lr"] for g in opt.param_groups]
+        run = {"metrics": [], "masks": [], "captured": [], "lr": []}
+        graph_masks = []
+        with recorded_masks() as rec:
+            for batch, m in zip(batches, momenta):
+                run["metrics"].append(step(model, batch, gen, m))
+                new = list(rec)
+                if step.program is not None:
+                    run["captured"].append(step.program.last["captured"])
+                    if run["captured"][-1]:
+                        new, graph_masks = new[:len(new) // 2], new[len(new) // 2:]
+                    else:
+                        new = graph_masks
+                run["masks"].append([t.clone() for t in new])
+                rec.clear()
+                run["lr"].append([float(g["lr"]) for g in opt.param_groups])
+        run["no_gradient"] = [n for n, p in model.named_parameters() if p.grad is None]
+        run["no_gradient_moved"] = [n for n, p in model.named_parameters()
+                                    if p.grad is None and not torch.equal(p, init[n])]
+        run.update(model=model, opt=opt, gen_state=gen.get_state(),
+                   lr_in_place=all(a is b for a, b in zip(rates, (g["lr"] for g in
+                                                                 opt.param_groups))),
+                   capture_s=step.program.last["capture_s"] if step.program else None)
+        runs[kind] = run
+    e, c = runs["eager"], runs["captured"]
+    torch.cuda.synchronize()
+    return {
+        "captured_calls": c["captured"], "capture_s": c["capture_s"],
+        "lr": c["lr"], "lr_eager": e["lr"], "lr_tensors_filled_in_place": c["lr_in_place"],
+        "masks_per_step": [len(m) for m in e["masks"]],
+        "metrics_differ": [differing(a, b) for a, b in zip(c["metrics"], e["metrics"])],
+        "masks_differ": [[i for i, (a, b) in enumerate(zip(cm, em)) if not torch.equal(a, b)]
+                         + ([] if len(cm) == len(em) else ["count"])
+                         for cm, em in zip(c["masks"], e["masks"])],
+        "parameters_differ": differing(dict(c["model"].named_parameters()),
+                                       dict(e["model"].named_parameters())),
+        "adam_state_differ": differing(adam_state(c["opt"]), adam_state(e["opt"])),
+        "adam_state_tensors": len(adam_state(c["opt"])),
+        "bn_buffers_differ": differing(bn_buffers(c["model"]), bn_buffers(e["model"])),
+        "generator_state_equal": bool(torch.equal(c["gen_state"], e["gen_state"])),
+        "no_gradient": c["no_gradient"], "no_gradient_eager": e["no_gradient"],
+        "no_gradient_moved": c["no_gradient_moved"],
+        "no_gradient_moved_eager": e["no_gradient_moved"],
+    }
+
+
+def generator_probe(seeds=(1, 2, 3), n=1 << 20):
+    """A graph that draws two masks from a registered generator, replayed
+    once a seed after that generator took the state of a caller's generator
+    (seeded, then advanced by a draw of 7): per seed, whether the replay's
+    masks equal those drawn eagerly from the same state, and whether the
+    caller's state after the replay (written back) equals the eager
+    generator's."""
+    own = torch.Generator(device=DEV)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(own)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        drawn = [torch.empty(n, device=DEV).bernoulli_(0.9, generator=own) for _ in range(2)]
+    out = []
+    for seed in seeds:
+        caller = torch.Generator(device=DEV).manual_seed(seed)
+        torch.empty(7, device=DEV).bernoulli_(0.5, generator=caller)
+        ref = torch.Generator(device=DEV)
+        ref.set_state(caller.get_state())
+        want = [torch.empty(n, device=DEV).bernoulli_(0.9, generator=ref) for _ in range(2)]
+        own.set_state(caller.get_state())
+        graph.replay()
+        caller.set_state(own.get_state())
+        out.append({"seed": seed, "masks_equal": all(torch.equal(a, b) for a, b in
+                                                     zip(drawn, want)),
+                    "state_equal": bool(torch.equal(caller.get_state(), ref.get_state()))})
+    return out
+
+
+def train_determinism_worker():
+    """``chip_smoke.py --train-determinism``: the captured train step
+    against the eager one under ``torch.use_deterministic_algorithms``
+    (this process's ``CUBLAS_WORKSPACE_CONFIG`` set by its parent before
+    cuBLAS starts), at full width (default ModelConfig, TrainConfig(), B =
+    8, ``train_batch`` at 40,000 points), four legs: dropout 0, dropout 0.1
+    (masks compared), detection pretraining (``no_caption``) at
+    CAPTURED_TRAIN_MOMENTA with its rate decayed at updates 1 and 2, and
+    the relation head out of the loss (``use_relation=False``: its
+    parameters get no gradient, and Adam must leave them as they were in
+    both steps); and ``generator_probe``. Prints ``TRAIN_DETERMINISM`` and one JSON object:
+    each leg's ``determinism_leg``, the probe, the warnings of operations
+    without a deterministic implementation, and ``failures``."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig()
+    batches = [to_device_batch(train_batch(cfg, B, seed=s), torch.device(DEV))
+               for s in range(CAPTURED_TRAIN_STEPS)]
+    legs = {
+        "dropout_0": (dataclasses.replace(cfg, transformer_dropout=0.0), TrainConfig(),
+                      (0.1,) * CAPTURED_TRAIN_STEPS),
+        "dropout_0.1": (dataclasses.replace(cfg, transformer_dropout=0.1), TrainConfig(),
+                        (0.1,) * CAPTURED_TRAIN_STEPS),
+        "pretraining": (dataclasses.replace(cfg, no_caption=True, check_relation=False),
+                        TrainConfig(no_caption=True, use_relation=False, lr_decay_step=(1, 2)),
+                        CAPTURED_TRAIN_MOMENTA),
+        # the relation head built but out of the loss: its parameters get no
+        # gradient (ROADMAP Queue 3, "Adam and parameters without a gradient")
+        "relation_head_without_loss": (cfg, TrainConfig(use_relation=False),
+                                       (0.1,) * CAPTURED_TRAIN_STEPS),
+    }
+    out, failures = {}, []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for name, (leg_cfg, tc, momenta) in legs.items():
+            t0 = time.perf_counter()
+            try:
+                res = determinism_leg(leg_cfg, tc, batches, momenta)
+            except Exception as e:      # a capture or replay that fails
+                res = {"error": f"{type(e).__name__}: {e}"[:2000]}
+                failures.append(f"{name}: {res['error'][:300]}")
+            res["wall_s"] = time.perf_counter() - t0
+            out[name] = res
+            if "error" in res:
+                continue
+            differ = {k: res[k] for k in ("metrics_differ", "masks_differ", "parameters_differ",
+                                          "adam_state_differ", "bn_buffers_differ")
+                      if any(res[k])}
+            if differ or not res["generator_state_equal"]:
+                failures.append(f"{name}: replays differ from eager steps: {differ}, generator "
+                                f"state equal {res['generator_state_equal']}")
+            if (res["no_gradient"] != res["no_gradient_eager"] or res["no_gradient_moved"]
+                    or res["no_gradient_moved_eager"]
+                    or bool(res["no_gradient"]) != (name == "relation_head_without_loss")):
+                failures.append(f"{name}: parameters without a gradient {res['no_gradient']}, "
+                                f"moved {res['no_gradient_moved']}, eager "
+                                f"{res['no_gradient_moved_eager']}")
+            if res["captured_calls"] != [True] + [False] * (CAPTURED_TRAIN_STEPS - 1):
+                failures.append(f"{name}: captured calls {res['captured_calls']}")
+            dropped = leg_cfg.transformer_dropout > 0 and not leg_cfg.no_caption
+            if not (all(res["masks_per_step"]) if dropped else not any(res["masks_per_step"])):
+                failures.append(f"{name}: masks a step {res['masks_per_step']}")
+            # the rate decays after updates 1 and 2: the replays run at the
+            # rates the scheduler filled in
+            if name == "pretraining" and (res["lr"] != res["lr_eager"]
+                                          or not res["lr_tensors_filled_in_place"]
+                                          or not res["lr"][1][0] < res["lr"][0][0] < tc.lr):
+                failures.append(f"pretraining: rates {res['lr']} against {res['lr_eager']}, "
+                                f"filled in place {res['lr_tensors_filled_in_place']}")
+        out["generator_probe"] = generator_probe()
+    if not all(r["masks_equal"] and r["state_equal"] for r in out["generator_probe"]):
+        failures.append(f"generator probe: {out['generator_probe']}")
+    out["nondeterministic_ops"] = sorted({str(w.message)[:200] for w in caught
+                                          if "deterministic" in str(w.message)})
+    out["failures"] = failures
+    print("TRAIN_DETERMINISM " + json.dumps(out), flush=True)
+
+
+def phase_captured_train():
+    """The captured train step (``make_train_step``'s default on CUDA)
+    against the eager one (``capture=False``) at full width: default
+    ModelConfig, TrainConfig(), B = 8, ``train_batch`` at 40,000 points,
+    dropout 0.1, seeded weights and generators. First the deterministic
+    legs in a process of their own (``train_determinism_worker``): the
+    replays bit-equal to eager steps (metrics, dropout masks, parameters,
+    Adam's state, BN buffers, the caller's generator state), the momentum
+    and a scheduler milestone reaching the replays. Then here: the
+    wrappers count a step's launches twice in the capture call and not at
+    all in a replay; a profiled replay's kernel spans are FPS 2, ball query
+    5, decode kernels 0; the captured and the eager step timed in turns,
+    TRAIN_TIMED each after TRAIN_WARMUP (step ms, train scenes/s, the
+    eager step's split from its CUDA events), each profiled (device busy ms
+    and share, spans a step), their peak memory and the capture's seconds;
+    last, an in-place update of the weights replays, and a loaded optimizer
+    state and a replaced parameter each capture anew. Returns the captured
+    and eager summaries."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_DETERMINISTIC)
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"),
+                           "--train-determinism"], capture_output=True, text=True, env=env,
+                          cwd=here, timeout=900)
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("TRAIN_DETERMINISM ")),
+                None)
+    if proc.returncode != 0 or line is None:
+        raise AssertionError(f"captured_train: the deterministic process exited "
+                             f"{proc.returncode}: {proc.stderr[-4000:]}")
+    det = json.loads(line[len("TRAIN_DETERMINISM "):])
+    log("captured_train", determinism=det, determinism_process_s=time.perf_counter() - t0)
+    if det["failures"]:
+        raise AssertionError(f"captured_train: {det['failures']}")
+
+    cfg, tc = ModelConfig(), TrainConfig()
+    batch = to_device_batch(train_batch(cfg, B, seed=0), torch.device(DEV))
+    legs = {}
+    for kind in ("captured", "eager"):
+        model = init_spacap(cfg, seed=0, device=DEV)
+        opt, sched = make_optimizer(model, tc, steps_per_epoch=1000)
+        step = make_train_step(cfg, tc, opt, device=DEV, scheduler=sched,
+                               capture=kind == "captured")
+        if step.program is not None:
+            step.program.keep_graphs = True
+        legs[kind] = {"model": model, "opt": opt, "step": step, "times": [],
+                      "gen": torch.Generator(device=DEV).manual_seed(0)}
+
+    def run(kind, marks=None):
+        leg = legs[kind]
+        before = {k: f.launches for k, f in KERNELS.items()}
+        t0 = time.perf_counter()
+        metrics = leg["step"](leg["model"], batch, leg["gen"], 0.1, marks)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = {k: f.launches - before[k] for k, f in KERNELS.items()}
+        if got != wrapper_want(leg["step"], TRAIN_WANT):
+            raise AssertionError(f"captured_train {kind}: the wrappers counted {got}, want "
+                                 f"{wrapper_want(leg['step'], TRAIN_WANT)}")
+        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            raise AssertionError(f"captured_train {kind}: non-finite metrics")
+        return wall
+
+    program = legs["captured"]["step"].program
+    res = {"capture_call_ms": run("captured"), "capture_s": program.last["capture_s"]}
+    if not program.last["captured"]:
+        raise AssertionError("captured_train: the first call did not capture")
+    res["graph_nodes"] = [cuda_graph_nodes(g) for g in last_key_graphs(program)]
+    memory = {}
+    for kind in ("captured", "eager"):
+        for _ in range(TRAIN_WARMUP):
+            run(kind)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run(kind)
+        memory[kind] = {"peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+    splits = {"forward": [], "loss": [], "backward": [], "optimizer": []}
+    for turn in range(TRAIN_TIMED):
+        for kind in (("captured", "eager") if turn % 2 == 0 else ("eager", "captured")):
+            marks = [] if kind == "eager" else None
+            legs[kind]["times"].append(run(kind, marks))
+            if marks is not None:
+                for j, name in enumerate(splits):
+                    splits[name].append(marks[j].elapsed_time(marks[j + 1]))
+    summary = {}
+    for kind in ("captured", "eager"):
+        prof = device_profile(lambda kind=kind: run(kind), TRAIN_WANT,
+                              program=legs[kind]["step"].program)
+        med = float(np.median(legs[kind]["times"]))
+        summary[kind] = {
+            "step_ms": med, "step_ms_all": legs[kind]["times"],
+            "train_scenes_per_s": B / (med / 1e3), "launches": prof["kernel_spans"],
+            "device_busy_ms": prof.get("device_busy_ms"), "device_spans": prof.get("device_spans"),
+            "device_busy_share": (prof["device_busy_ms"] / med if "device_busy_ms" in prof
+                                  else None),
+            "profile_check": prof.get("check"), "graph_spans": prof.get("graph_spans"),
+            "graph_nodes_replayed": prof.get("graph_nodes"),
+            "top_device_ms": prof.get("top_device_ms"), **memory[kind]}
+        if prof["kernel_spans"] != TRAIN_WANT:
+            raise AssertionError(f"captured_train {kind}: the profiled step's kernel spans "
+                                 f"{prof['kernel_spans']}, want {TRAIN_WANT}")
+    summary["eager"]["split_ms"] = {k: float(np.median(v)) for k, v in splits.items()}
+
+    model, opt, step = (legs["captured"][k] for k in ("model", "opt", "step"))
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.mul_(1.001)
+    run("captured")
+    res["in_place_update_recaptured"] = program.last["captured"]
+    load_optimizer_state(opt, copy.deepcopy(opt.state_dict()))
+    run("captured")
+    res["loaded_state_recaptured"] = program.last["captured"]
+    res["graph_sets_after_load"] = len(program.entries)
+    head = model.proposal.proposal[6]
+    head.bias = torch.nn.Parameter(head.bias.detach().clone())
+    run("captured")
+    res["replaced_parameter_recaptured"] = program.last["captured"]
+    res["graph_sets_after_replace"] = len(program.entries)
+    run("captured")
+    res["replayed_after_replace"] = not program.last["captured"]
+    log("captured_train", **res, **{f"{k}_leg": v for k, v in summary.items()},
+        captured_over_eager_step_ms=summary["captured"]["step_ms"] / summary["eager"]["step_ms"])
+    if (res["in_place_update_recaptured"] or not res["loaded_state_recaptured"]
+            or not res["replaced_parameter_recaptured"] or not res["replayed_after_replace"]
+            or res["graph_sets_after_load"] != 1 or res["graph_sets_after_replace"] != 1):
+        raise AssertionError(f"captured_train: keys {res}")
+    del legs
+    torch.cuda.empty_cache()
+    return summary
 
 
 def train_once(model, cfg, tc, batch, pin=None):
@@ -1965,7 +2320,9 @@ def train_once(model, cfg, tc, batch, pin=None):
     dev = next(model.parameters()).device
     hooks = pin_pools(model, pin) if pin is not None else []
     opt, _ = make_optimizer(model, tc, steps_per_epoch=1)
-    metrics = make_train_step(cfg, tc, opt, device=dev)(model, batch)
+    # eager: the pins are uploaded inside the forward's hooks, which a
+    # capture cannot hold
+    metrics = make_train_step(cfg, tc, opt, device=dev, capture=False)(model, batch)
     for h in hooks:
         h.remove()
     return ({k: float(v) for k, v in metrics.items()},
@@ -2598,7 +2955,9 @@ def train_cli_run(calls, snap, argv, what):
               "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
               "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
               "graph_sets_held": (len(solver.eval_step.program.entries)
-                                  if solver.eval_step.program is not None else 0)}
+                                  if solver.eval_step.program is not None else 0),
+              "train_graph_sets_held": (len(solver.train_step.program.entries)
+                                        if solver.train_step.program is not None else 0)}
     snap.check(solver)
     steps, vals = calls.take("train_step"), calls.take("val_forward")
     with open(os.path.join(solver.root, "all_scalars.json")) as f:
@@ -2827,14 +3186,30 @@ def phase_cli():
         log("cli", visualized_predictions=vis, launches=launches)
 
         t0 = time.perf_counter()
-        result = overfit_gate.main(["--workdir", os.path.join(root, "overfit"), "--device",
-                                    DEV] + OVERFIT_ARGS)
+        result = overfit_gate_run(root)
         gate_s = time.perf_counter() - t0
-        calls.take()
         log("overfit_gate", wall_s=gate_s, args=OVERFIT_ARGS, **result)
         if not result["passed"]:
             raise AssertionError(f"overfit gate failed: {result}")
     return launches
+
+
+def overfit_gate_run(root):
+    """``scripts/overfit_gate.py --deterministic`` at OVERFIT_ARGS in a
+    fresh process (its cuBLAS must start after ``CUBLAS_WORKSPACE_CONFIG``
+    is set), working under ``root``; returns its JSON result."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "overfit_result.json")
+    proc = subprocess.run([sys.executable, "-m", "spacap3d_tpu_torch.scripts.overfit_gate",
+                           "--workdir", os.path.join(root, "overfit"), "--device", DEV,
+                           "--deterministic", "--out", out] + OVERFIT_ARGS,
+                          capture_output=True, text=True, cwd=here, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode not in (0, 1) or not os.path.exists(out):
+        raise AssertionError(f"overfit gate process exited {proc.returncode}: "
+                             f"{proc.stderr[-4000:]}")
+    with open(out) as f:
+        return json.load(f)
 
 
 def run_ranks(cmd, world, what, expect_fail=False):
@@ -3135,6 +3510,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if "--train-determinism" in sys.argv:
+        train_determinism_worker()
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3163,6 +3541,7 @@ def main() -> int:
     launches, wrapper_launches, forward_scenes_per_s = phase_eval_forward()
     phase_captured_eval()
     train_launches, train_summary = phase_train_step()
+    phase_captured_train()
     phase_cpu_vs_gpu()
     phase_cpu_vs_gpu_train()
     mul_eval_launches = phase_mul_eval(forward_scenes_per_s)

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from spacap3d_tpu_torch import ops
-from spacap3d_tpu_torch.models.core import BatchNorm, Dense
+from spacap3d_tpu_torch.models.core import BatchNorm, Dense, Momentum
 
 
 class _BNWrap(nn.Module):
@@ -67,7 +67,7 @@ class SAModule(nn.Module):
         self.mlp_module = SharedMLP(dims)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor],
-                momentum: Optional[float] = None):
+                momentum: Optional[Momentum] = None):
         """xyz (B, N, 3), features (B, N, C) or None -> (new_xyz (B, np, 3),
         new_features (B, np, mlp[-1]), inds (B, np) int32). ``momentum``
         moves the batch norms' running stats in train mode."""
@@ -127,7 +127,7 @@ class Backbone(nn.Module):
         self.fp2 = FPModule([cfg.sa_widths[1][-1] + w, w, w])
 
     def forward(self, point_clouds: torch.Tensor,
-                momentum: Optional[float] = None) -> Dict[str, torch.Tensor]:
+                momentum: Optional[Momentum] = None) -> Dict[str, torch.Tensor]:
         xyz = point_clouds[..., :3]
         features = point_clouds[..., 3:] if point_clouds.shape[-1] > 3 else None
         out: Dict[str, torch.Tensor] = {}

@@ -44,6 +44,7 @@ from spacap3d_tpu_torch.config import EOS_ID, SOS_ID, ModelConfig
 from spacap3d_tpu_torch.models.core import (
     BatchNorm,
     Dense,
+    Momentum,
     RefLayerNorm,
     dense,
     dropout,
@@ -344,7 +345,7 @@ class Captioner(nn.Module):
         }[self.cfg.src_pos_type]()
 
     def src_embed(self, src: torch.Tensor, src_pos: Optional[torch.Tensor],
-                  rate: float = 0.0, gen=None, momentum: Optional[float] = None
+                  rate: float = 0.0, gen=None, momentum: Optional[Momentum] = None
                   ) -> torch.Tensor:
         """Learned position head (conv-BN-ReLU-conv; ``momentum`` moves its
         BN's running stats in train mode) or sinusoidal PE (with dropout)."""
@@ -435,7 +436,7 @@ class Captioner(nn.Module):
 
     def train_forward(self, ep: Dict[str, torch.Tensor],
                       gen: Optional[torch.Generator] = None,
-                      bn_momentum: float = 0.1) -> Dict[str, torch.Tensor]:
+                      bn_momentum: Momentum = 0.1) -> Dict[str, torch.Tensor]:
         """Teacher-forced forward over the detector endpoints and the batch's
         ``lang_label`` / ``ref_center_label``: ``lang_cap`` (B, T, vocab)
         log-probs, ``match_idx``, ``good_bbox_masks``, ``pred_ious`` and,

@@ -14,11 +14,17 @@ JAX package.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.distributed as dist
 from torch import nn
+
+
+# a train step's BN momentum: a Python float, or a 0-dim f32 tensor on the
+# model's device that the step fills each call (a captured step reads it
+# where it lies, as the JAX step takes ``bn_momentum`` as a traced argument)
+Momentum = Union[float, torch.Tensor]
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None
@@ -213,7 +219,9 @@ class BatchNorm(nn.BatchNorm1d):
     stats move as the JAX package's ``batch_norm`` moves them, with the
     unbiased variance ``var * n / (n - 1)`` and ``running = (1 - m) *
     running + m * batch`` at the ``momentum`` the caller passes (the train
-    step's, which a solver schedules); train mode without one raises. The
+    step's, which a solver schedules; a ``Momentum``: with a 0-dim f32
+    tensor ``1 - m`` is taken on the device in f32, as the JAX step takes
+    it); train mode without one raises. The
     module's own ``momentum`` attribute is not read. ``F.batch_norm`` is
     not used: cuDNN's statistics are not the JAX forward's. With ``group``
     set (``set_batch_norm_group``; a group of more than one rank) train
@@ -222,7 +230,7 @@ class BatchNorm(nn.BatchNorm1d):
 
     group = None
 
-    def forward(self, x: torch.Tensor, momentum: Optional[float] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, momentum: Optional[Momentum] = None) -> torch.Tensor:
         if self.training:
             if momentum is None:
                 raise ValueError("train-mode batch norm needs the momentum of the step")
@@ -248,7 +256,7 @@ def set_batch_norm_group(model: nn.Module, group) -> None:
 
 
 def run_layers(layers: nn.Sequential, x: torch.Tensor,
-               momentum: Optional[float] = None) -> torch.Tensor:
+               momentum: Optional[Momentum] = None) -> torch.Tensor:
     """``layers(x)``, with ``momentum`` passed to each batch norm."""
     for layer in layers:
         x = layer(x, momentum) if isinstance(layer, BatchNorm) else layer(x)

@@ -11,7 +11,7 @@ from torch import nn
 
 from spacap3d_tpu_torch import ops
 from spacap3d_tpu_torch.models.backbone import SAModule
-from spacap3d_tpu_torch.models.core import BatchNorm, Dense, run_layers
+from spacap3d_tpu_torch.models.core import BatchNorm, Dense, Momentum, run_layers
 
 
 def head_out_dim(num_heading_bin: int, num_size_cluster: int, num_class: int) -> int:
@@ -37,7 +37,7 @@ class Proposal(nn.Module):
         )
 
     def forward(self, vote_xyz, vote_features, mean_size_arr,
-                momentum: Optional[float] = None) -> Dict[str, torch.Tensor]:
+                momentum: Optional[Momentum] = None) -> Dict[str, torch.Tensor]:
         """``momentum`` moves the batch norms' running stats in train mode."""
         new_xyz, feats, inds = self.vote_aggregation(vote_xyz, vote_features, momentum)
         out = {

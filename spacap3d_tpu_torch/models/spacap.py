@@ -18,7 +18,7 @@ from spacap3d_tpu_torch.data.scannet_config import mean_size_arr as default_mean
 from spacap3d_tpu_torch.device import resolve_device
 from spacap3d_tpu_torch.models.backbone import Backbone
 from spacap3d_tpu_torch.models.captioner import Captioner
-from spacap3d_tpu_torch.models.core import reset_parameters
+from spacap3d_tpu_torch.models.core import Momentum, reset_parameters
 from spacap3d_tpu_torch.models.proposal import Proposal
 from spacap3d_tpu_torch.models.voting import Voting
 
@@ -39,7 +39,7 @@ class SpaCapNet(nn.Module):
                              persistent=False)
 
     def detect(self, point_clouds: torch.Tensor,
-               bn_momentum: Optional[float] = None) -> Dict[str, torch.Tensor]:
+               bn_momentum: Optional[Momentum] = None) -> Dict[str, torch.Tensor]:
         """Detector trunk: point_clouds (B, N, 3 + D) -> endpoint dict. In
         train mode the batch norms move their running stats at
         ``bn_momentum``."""
@@ -57,7 +57,7 @@ class SpaCapNet(nn.Module):
 
     def train_forward(self, batch: Dict[str, torch.Tensor],
                       gen: Optional[torch.Generator] = None,
-                      bn_momentum: float = 0.1) -> Dict[str, torch.Tensor]:
+                      bn_momentum: Momentum = 0.1) -> Dict[str, torch.Tensor]:
         """The batch (``point_clouds`` and the label keys) plus the detector
         and teacher-forced captioner endpoints, as the JAX package's
         ``apply_spacap(is_eval=False, train=True)``. In train mode (the

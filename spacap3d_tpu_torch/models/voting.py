@@ -7,7 +7,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from spacap3d_tpu_torch.models.core import BatchNorm, Dense
+from spacap3d_tpu_torch.models.core import BatchNorm, Dense, Momentum
 
 
 class Voting(nn.Module):
@@ -22,7 +22,7 @@ class Voting(nn.Module):
         self.bn2 = BatchNorm(d)
 
     def forward(self, seed_xyz: torch.Tensor, seed_features: torch.Tensor,
-                momentum: Optional[float] = None):
+                momentum: Optional[Momentum] = None):
         """(B, M, 3), (B, M, C) -> vote_xyz (B, M*vf, 3), vote_features (B,
         M*vf, C); ``momentum`` moves the batch norms' running stats in train
         mode."""

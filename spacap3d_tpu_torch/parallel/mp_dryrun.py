@@ -243,10 +243,14 @@ class Worker:
         return make_optimizer(model, tc, steps_per_epoch=10)[0]
 
     def run_steps(self, model, batch, group, data_rank) -> List[Dict]:
-        """``--steps`` train steps; per step its metrics, launches and ms."""
+        """``--steps`` train steps; per step its metrics, launches and ms.
+        Eager (``capture=False``): a group step runs eagerly anyway, and the
+        plain step without a group is its reference, whose launches and
+        pinned choices (``--pin``'s hooks and index tape) are taken op by
+        op."""
         tc = self.train_config()
         step = make_train_step(self.cfg, tc, self.optimizer(model, tc), device=self.dev,
-                               group=group)
+                               group=group, capture=False)
         out = []
         for it in range(self.args.steps):
             gen = (dropout_generator(self.dev, SEED, it, data_rank)

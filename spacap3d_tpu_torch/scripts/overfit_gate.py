@@ -12,10 +12,20 @@ CIDEr above 1.0 (100 in the reference's x100 convention) is out of reach of
 a model that has not learnt both.
 
     python -m spacap3d_tpu_torch.scripts.overfit_gate [--epochs 150] [--scenes 6] [--device cuda]
+        [--deterministic]
 
 Prints one JSON line {"cider": ..., "passed": bool, ...}.
+
+The pass/fail transition is sharp in epochs (the JAX package's CI test
+notes CIDEr 0.0 at 150 epochs, 1.22 at 200), and on CUDA the backward sums
+with atomics, so two runs of one seed differ from the first steps on and
+the score varies from run to run. ``--deterministic`` runs the whole gate
+under torch's deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` set
+before cuBLAS starts: give it to a fresh process), so that one card and
+software stack give one score, as the JAX package's CPU run does.
 """
 import argparse
+import contextlib
 import csv
 import json
 import os
@@ -50,11 +60,37 @@ def parse_args(argv=None):
                    help="also write the one-line JSON result to this path")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
+    p.add_argument("--deterministic", action="store_true",
+                   help="torch's deterministic algorithms, in a process whose cuBLAS has "
+                        "not started (module docstring)")
     return p.parse_args(argv)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool):
+    """torch's deterministic algorithms while the ``with`` lasts, where
+    ``on``; the caller's setting after."""
+    if not on:
+        yield
+        return
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")   # before cuBLAS starts
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    with deterministic_algorithms(args.deterministic):
+        return run(args)
+
+
+def run(args):
     from spacap3d_tpu_torch.data.synthetic import write_synthetic_dataset
     from spacap3d_tpu_torch.scripts import eval as eval_cli
     from spacap3d_tpu_torch.scripts import train as train_cli

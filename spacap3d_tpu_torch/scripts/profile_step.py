@@ -7,7 +7,8 @@ device time of its kernels summed by name family, as the JAX package's
 
 The full-width step is the default ``ModelConfig`` at B = 8 (40,000 points,
 vocab 4528) on the port's synthetic batch, seeded random weights; one step
-runs before the capture. Kernels are summed by family (``family``): the
+runs before the profile. On CUDA the steps run captured (one CUDA graph a
+step, which that first step captures), as the solver runs them. Kernels are summed by family (``family``): the
 name without template arguments, parameters and trailing digits. Device busy is the union of the
 kernel and copy spans, so families that overlap can sum past it. On the CPU
 the trace has no device spans, and the script prints the host's op times

@@ -15,6 +15,13 @@ for one process on one device:
   * the BN momentum of detection pretraining: 0.5 * rate^(epoch // step),
     floored at 0.001 (:179-187); 0.1 otherwise.
 
+On CUDA the train step runs captured (``train/step.py::make_train_step``:
+one CUDA graph a step, replayed with the batch, the momentum and the
+dropout generator's state loaded into it), and so does the validation's
+eval forward; the validation's graphs are dropped after each validation,
+the train graph is kept. Data and tensor parallelism run the steps
+eagerly.
+
 Dropout masks come from a generator on the model's device seeded from
 (``TrainConfig.seed``, the global iteration) at every step, so a resumed
 run draws the masks an uninterrupted one would. They are not the JAX
@@ -54,7 +61,12 @@ from spacap3d_tpu_torch.eval.eval_helper import eval_cap, eval_device
 from spacap3d_tpu_torch.parallel import tp as tp_mod
 from spacap3d_tpu_torch.parallel.mesh import group_rank_size
 from spacap3d_tpu_torch.parallel.multihost import allgather_pyobj, process_count, process_index
-from spacap3d_tpu_torch.train.step import make_eval_step, make_optimizer, make_train_step
+from spacap3d_tpu_torch.train.step import (
+    load_optimizer_state,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+)
 from spacap3d_tpu_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint
 from spacap3d_tpu_torch.utils.convert import payload_from_jax
 from spacap3d_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, load_jax_checkpoint
@@ -215,7 +227,9 @@ class Solver:
             opt_sd = tp_mod.shard_optimizer_state(opt_sd, self.optimizer, self.model,
                                                   self.tp_mesh)
         self.model.load_state_dict(model_sd)
-        self.optimizer.load_state_dict(opt_sd)
+        # the optimizer's own kind (capturable on CUDA, plain on the CPU)
+        # whatever kind wrote the state; new state tensors recapture
+        load_optimizer_state(self.optimizer, opt_sd)
         if self.scheduler is not None:
             self.scheduler.load_state_dict(payload["scheduler_state_dict"])
         # native types for json.dump in dump_scalars and best.json
@@ -228,7 +242,8 @@ class Solver:
     def profile(self, num_steps: int = 5):
         """A torch.profiler trace of ``num_steps`` train steps (real
         updates) into <run>/profile/trace.json, one warm-up step outside it
-        (the port's counterpart of the reference's wall-clock telemetry,
+        (on CUDA that step also captures the train graph, so the trace holds
+        its replays) (the port's counterpart of the reference's wall-clock telemetry,
         lib/solver.py:464-505). View it in chrome://tracing or Perfetto."""
         from torch.profiler import ProfilerActivity, profile
 
@@ -360,7 +375,8 @@ class Solver:
         program = getattr(self.eval_step, "program", None)
         if program is not None:
             # the validation's graphs would hold their memory pools through
-            # the training until the next validation: it captures anew
+            # the training until the next validation: it captures anew (the
+            # train step's graph stays)
             program.clear()
         if self.process_count > 1:
             # every rank scores the same captions, but a METEOR stage that

@@ -7,6 +7,11 @@ update. Eval: the eval forward (with greedy decode) plus the detection
 side-outputs the eval harness reads. The attention dump: the detector in
 eval mode, then the teacher-forced captioner over the greedy tokens.
 
+On CUDA both steps run captured by default (``train/capture.py``), the
+counterparts of the JAX package's ``jax.jit`` of its steps: the train
+step's forward, losses, backward and Adam update replay as one CUDA graph,
+its scheduler steps on the host between replays.
+
 Data parallelism (``group``): the train step on each rank of a process
 group computes what the JAX package's step computes on one mesh-sharded
 global batch. Each rank holds a row-block of the batch; batch norm takes
@@ -18,6 +23,8 @@ the parameters equal. The metrics are the global batch's.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -25,10 +32,10 @@ import torch.distributed as dist
 
 from spacap3d_tpu_torch.config import ModelConfig, TrainConfig
 from spacap3d_tpu_torch.device import resolve_device
-from spacap3d_tpu_torch.models.core import set_batch_norm_group
+from spacap3d_tpu_torch.models.core import Momentum, set_batch_norm_group
 from spacap3d_tpu_torch.parallel.tp import average_replicated_gradients
 from spacap3d_tpu_torch.ops.nn_distance import nn_distance
-from spacap3d_tpu_torch.train.capture import CapturedFunction
+from spacap3d_tpu_torch.train.capture import CapturedFunction, optimizer_state
 from spacap3d_tpu_torch.train.losses import NEAR_THRESHOLD, get_scene_cap_loss
 from spacap3d_tpu_torch.utils.segments import Segments, run_eager
 
@@ -149,11 +156,14 @@ def eval_segments(cfg: ModelConfig, compact: bool) -> Callable[[torch.nn.Module]
     return segments_of
 
 
-def captured(capture: bool, device: torch.device, model=None) -> bool:
-    """Whether an eval step on ``device`` runs captured (``make_eval_step``'s
-    ``capture``): on CUDA unless ``capture`` is False; with ``model``, not
-    for a model whose captioner has a tensor-parallel group (its
-    all-reduces go through the host)."""
+def captured(capture: bool, device: torch.device, model=None, group=None) -> bool:
+    """Whether an eval or train step on ``device`` runs captured (the
+    steps' ``capture``): on CUDA unless ``capture`` is False; not for a
+    train step with a data-parallel ``group``, nor, with ``model``, for a
+    model whose captioner has a tensor-parallel group (their all-reduces
+    go through the host)."""
+    if group is not None:
+        return False
     if model is not None and getattr(getattr(model, "caption", None), "tp_group", None) is not None:
         return False
     return capture and device.type == "cuda"
@@ -220,22 +230,57 @@ def make_optimizer(model: torch.nn.Module, tc: TrainConfig, steps_per_epoch: int
     running stats still move). Detection pretraining (``no_caption``) with
     ``lr_decay_step`` also returns a MultiStepLR, to be stepped once an
     update, that decays the rate by ``lr_decay_rate`` from the update of
-    index ``epoch * steps_per_epoch`` on; else the scheduler is None."""
+    index ``epoch * steps_per_epoch`` on; else the scheduler is None.
+
+    On CUDA the Adam is ``capturable`` (its step counts on the device, so
+    that a captured step may run it), eager steps too, and where the
+    MultiStepLR moves the rate each group's ``lr`` is a 0-dim tensor on the
+    device that the scheduler fills in place. torch allows ``capturable``
+    only on CUDA-like devices: on the CPU it is the plain Adam."""
+    dev = next(model.parameters()).device
+    capturable = dev.type == "cuda"
+    scheduled = bool(tc.no_caption and tc.lr_decay_step)
     groups = {"base": [], "caption": []}
     for name, p in model.named_parameters():
         if name.startswith("caption."):
             groups["caption"].append(p)
         elif not tc.no_detection:
             groups["base"].append(p)
-    params = [{"params": groups["base"], "lr": tc.lr},
-              {"params": groups["caption"], "lr": tc.transformer_lr}]
+
+    def rate(lr):
+        return torch.tensor(float(lr), device=dev) if capturable and scheduled else lr
+    params = [{"params": groups["base"], "lr": rate(tc.lr)},
+              {"params": groups["caption"], "lr": rate(tc.transformer_lr)}]
     opt = torch.optim.Adam([g for g in params if g["params"]], betas=(0.9, 0.999), eps=1e-8,
-                           weight_decay=tc.wd)
+                           weight_decay=tc.wd, capturable=capturable)
     sched = None
-    if tc.no_caption and tc.lr_decay_step:
+    if scheduled:
         sched = torch.optim.lr_scheduler.MultiStepLR(
             opt, [int(e) * steps_per_epoch for e in tc.lr_decay_step], gamma=tc.lr_decay_rate)
     return opt, sched
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: Dict) -> None:
+    """``optimizer.load_state_dict(state_dict)`` into the optimizer's own
+    kind: a state written by a capturable Adam (``capturable`` groups,
+    tensor rates) loads into the CPU's plain Adam, and the CPU's into a
+    capturable one (which moves the step counts to the parameters' device
+    as it loads them). Each group keeps its ``capturable`` flag and its
+    kind of ``lr``: a tensor rate is filled in place with the saved value.
+    New state tensors make a captured step's next call capture anew
+    (``train/capture.py::optimizer_state``)."""
+    live = [(g.get("capturable"), g["lr"]) for g in optimizer.param_groups]
+    groups = []
+    for g, (capturable, _) in zip(state_dict["param_groups"], live):
+        g = dict(g, lr=float(g["lr"]))
+        if capturable is not None:
+            g["capturable"] = capturable
+        groups.append(g)
+    optimizer.load_state_dict({**state_dict, "param_groups": groups})
+    for g, (_, lr) in zip(optimizer.param_groups, live):
+        if torch.is_tensor(lr):
+            lr.fill_(g["lr"])
+            g["lr"] = lr
 
 
 def allreduce_gradients(model: torch.nn.Module, group) -> None:
@@ -261,41 +306,44 @@ def global_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.T
             for i, k in enumerate(keys)}
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Optimizer,
-                    device="cuda", scheduler=None, group=None) -> Callable:
-    """Returns step(model, batch, gen=None, bn_momentum=0.1, marks=None) ->
-    metrics, a dict of 0-dim tensors on ``device`` (``METRIC_KEYS``) taken
-    in the forward, before the update. A step sets ``model.train()``, runs
-    the train forward (dropout masks from ``gen``, BN running stats moved
-    at ``bn_momentum``), the losses and the backward, and steps
-    ``optimizer`` (and ``scheduler``). The gradients stay in ``.grad``
-    until the next step. ``batch`` holds ``TRAIN_KEYS`` as numpy arrays or
-    tensors. On a CUDA device a list ``marks`` receives five timing events,
-    recorded before the forward and after the forward, the losses, the
-    backward and the optimizer step: the step's split into those parts.
+def mark(marks: Optional[list]) -> None:
+    """Records a timing event into ``marks``, where it is a list."""
+    if marks is not None:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
 
-    ``group``: a process group whose ranks each pass their row-block of one
-    global batch (module docstring); the gradients are summed over it
-    before the update, and the metrics are the global batch's. Under tensor
-    parallelism (a model cut by ``parallel/tp.py::shard_model``) it is the
-    data group, and the gradients of the parameters every rank of a model
-    group holds whole are first averaged over that group."""
-    dev = resolve_device(device)
 
-    def mark(marks):
-        if marks is not None:
-            marks.append(torch.cuda.Event(enable_timing=True))
-            marks[-1].record()
+@contextlib.contextmanager
+def warm_up_gradients(model: torch.nn.Module, carry: Dict):
+    """Around the capture of a train step: the capture sets each ``.grad``
+    to None and its backward allocates the graph's own, from the graph's
+    pool, which every replay overwrites (torch's whole-network capture);
+    they hold nothing until a replay, so after the capture they take the
+    eager warm-up's gradients: ``.grad`` holds the step's gradients after a
+    capture call as after any other."""
+    warm = [p.grad for p in model.parameters()]
+    yield
+    with torch.no_grad():
+        for p, g in zip(model.parameters(), warm):
+            if p.grad is not None and g is not None:
+                p.grad.copy_(g)
 
-    def step(model, batch, gen: Optional[torch.Generator] = None,
-             bn_momentum: float = 0.1, marks: Optional[list] = None
-             ) -> Dict[str, torch.Tensor]:
-        batch = to_device_batch({k: batch[k] for k in TRAIN_KEYS}, dev)
-        model.train()
-        set_batch_norm_group(model, group)
-        try:
+
+def train_segments(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Optimizer,
+                   momentum: Momentum, group=None) -> Callable[[torch.nn.Module], Segments]:
+    """The train step's work on ``model`` as ``Segments`` of one part, on a
+    carry holding the batch (``"inputs"``), the dropout generator
+    (``"gen"``) and, for an eager step, the timing ``"marks"``: the train
+    forward with BN at ``momentum``, the losses, ``zero_grad`` to None and
+    the backward (under tensor or data parallelism the gradients' reductions
+    follow), and ``optimizer.step()``; it returns the metrics. Eager and
+    captured steps run this part alike."""
+
+    def segments_of(model) -> Segments:
+        def part(carry):
+            marks = carry.get("marks")
             mark(marks)
-            ep = model.train_forward(batch, gen, bn_momentum)
+            ep = model.train_forward(carry["inputs"], carry.get("gen"), momentum)
             mark(marks)
             ep = get_scene_cap_loss(
                 ep, model.mean_size_arr, cfg.num_heading_bin, cfg.num_size_cluster,
@@ -304,19 +352,87 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Op
             mark(marks)
             model.zero_grad(set_to_none=True)
             ep["loss"].backward()
+            tp_mesh = getattr(model, "tp_mesh", None)
+            if tp_mesh is not None:
+                average_replicated_gradients(model, tp_mesh)
+            if group is not None:
+                allreduce_gradients(model, group)
+            mark(marks)
+            optimizer.step()
+            return {k: ep[k].detach() for k in METRIC_KEYS if k in ep}
+
+        return Segments([part], around_capture=functools.partial(warm_up_gradients, model))
+
+    return segments_of
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Optimizer,
+                    device="cuda", scheduler=None, group=None, capture: bool = True) -> Callable:
+    """Returns step(model, batch, gen=None, bn_momentum=0.1, marks=None) ->
+    metrics, a dict of 0-dim tensors on ``device`` (``METRIC_KEYS``) taken
+    in the forward, before the update. A step sets ``model.train()``, runs
+    the train forward (dropout masks from ``gen``, BN running stats moved
+    at ``bn_momentum``), the losses and the backward, and steps
+    ``optimizer`` (and ``scheduler``). The gradients stay in ``.grad``
+    until the next step. ``batch`` holds ``TRAIN_KEYS`` as numpy arrays or
+    tensors. The momentum is a Python float; the step fills a 0-dim f32
+    tensor of its own with it, which the batch norms read. On a CUDA
+    device a list ``marks`` receives five timing events, recorded before
+    the forward and after the forward, the losses, the backward and the
+    optimizer step: an eager step's split into those parts.
+
+    ``capture``: True captures on CUDA and runs eagerly on the CPU; False
+    runs eagerly. A captured step (``train/capture.py::CapturedFunction``
+    over ``train_segments``, the counterpart of the JAX package's
+    ``jax.jit`` of its train step) replays the forward, losses, backward
+    and Adam update from one CUDA graph from the batch's upload on; the
+    scheduler steps on the host after it. Its first call of a key runs the
+    step eagerly (a real update; its metrics are the call's), then
+    captures; later calls copy the batch into the graph's inputs, load
+    ``gen``'s state into the program's own generator, replay, write the
+    advanced state back into ``gen`` and return copies of the metrics. It
+    needs the optimizer of ``make_optimizer`` (capturable on CUDA); CUDA
+    events recorded in a capture do not time a replay, so a captured step
+    given ``marks`` raises ``ValueError``. With a ``group``, and for a
+    model cut by ``parallel/tp.py::shard_model``, the step runs eagerly:
+    their all-reduces go through the host. A capture or a replay that
+    fails raises. ``step.program`` is the captured program (None when
+    eager).
+
+    ``group``: a process group whose ranks each pass their row-block of one
+    global batch (module docstring); the gradients are summed over it
+    before the update, and the metrics are the global batch's. Under tensor
+    parallelism (a model cut by ``parallel/tp.py::shard_model``) it is the
+    data group, and the gradients of the parameters every rank of a model
+    group holds whole are first averaged over that group."""
+    dev = resolve_device(device)
+    momentum = torch.zeros((), device=dev)
+    segments_of = train_segments(cfg, tc, optimizer, momentum, group)
+    program = (CapturedFunction(segments_of, state_of=lambda: optimizer_state(optimizer))
+               if captured(capture, dev, group=group) else None)
+
+    def step(model, batch, gen: Optional[torch.Generator] = None,
+             bn_momentum: float = 0.1, marks: Optional[list] = None
+             ) -> Dict[str, torch.Tensor]:
+        use_program = program is not None and captured(capture, dev, model)
+        if use_program and marks is not None:
+            raise ValueError("a captured train step takes no marks: CUDA events recorded in "
+                             "a capture do not time its replays; pass capture=False")
+        batch = to_device_batch({k: batch[k] for k in TRAIN_KEYS}, dev)
+        model.train()
+        momentum.fill_(bn_momentum)
+        set_batch_norm_group(model, group)
+        try:
+            if use_program:
+                metrics = program(model, batch, gen)
+            else:
+                metrics = run_eager(segments_of(model), batch, gen=gen, marks=marks)
         finally:
             set_batch_norm_group(model, None)
-        tp_mesh = getattr(model, "tp_mesh", None)
-        if tp_mesh is not None:
-            average_replicated_gradients(model, tp_mesh)
-        if group is not None:
-            allreduce_gradients(model, group)
-        mark(marks)
-        optimizer.step()
         if scheduler is not None:
             scheduler.step()
         mark(marks)
-        metrics = {k: ep[k].detach() for k in METRIC_KEYS if k in ep}
         return metrics if group is None else global_metrics(metrics, group)
 
+    step.program = program
     return step

@@ -77,7 +77,8 @@ def copy_into(static, new):
 class Rerun:
     """Stand-in for ``capture.CudaGraphs`` on the CPU: the warm-up runs the
     function; a capture runs the part once (its results are the static
-    tensors) and its graph reruns the part on replay."""
+    tensors) and its graph reruns the part on replay, drawing from the
+    generators a real capture registers (the carry's)."""
 
     def __init__(self, device, keep_graphs=False):
         pass
@@ -85,7 +86,7 @@ class Rerun:
     def warm_up(self, fn):
         return fn()
 
-    def capture(self, fn):
+    def capture(self, fn, generators=()):
         static = fn()
         return RerunGraph(fn, static), static
 

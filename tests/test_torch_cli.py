@@ -25,6 +25,7 @@ from spacap3d_tpu_torch.data.synthetic import write_synthetic_dataset
 from spacap3d_tpu_torch.scripts import eval as eval_cli
 from spacap3d_tpu_torch.scripts import overfit_gate, profile_step
 from spacap3d_tpu_torch.scripts import train as train_cli
+from spacap3d_tpu_torch.tools import overfit_spread
 from spacap3d_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint_sync
 from spacap3d_tpu_torch.utils.convert import params_from_jax
 from test_torch_solver import (  # noqa: F401  (one_torch_thread: autouse fixture)
@@ -259,6 +260,35 @@ def test_overfit_gate_plumbing(tmp_path):
             "corpus_train.json"} <= files
 
 
+def test_overfit_gate_deterministic_option(tmp_path, monkeypatch):
+    """``--deterministic``: the train and eval command lines run under
+    torch's deterministic algorithms, and the caller's setting is back
+    after the gate."""
+    seen = []
+    for cli in (train_cli, eval_cli):
+        def spy(argv, real=cli.main):
+            seen.append(torch.are_deterministic_algorithms_enabled())
+            return real(argv)
+        monkeypatch.setattr(cli, "main", spy)
+    result = overfit_gate.main(["--workdir", str(tmp_path / "overfit"), "--scenes", "2",
+                                "--epochs", "1", "--device", "cpu", "--deterministic"])
+    assert seen == [True, True, True] and result["epochs"] == 1
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_overfit_spread_runs_each_leg(capsys):
+    """``tools/overfit_spread.py`` at a few epochs on the CPU: each leg's
+    runs in fresh processes, one line a run and the summary."""
+    summary = overfit_spread.main(["--runs", "1", "--device", "cpu",
+                                   "--gate_args", "--scenes 2 --epochs 1 --threshold 0.5"])
+    assert sorted(summary) == ["default", "deterministic"]
+    for leg in summary.values():
+        assert len(leg["cider"]) == 1 and leg["min"] == leg["max"] == leg["cider"][0]
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [ln.get("leg") for ln in lines] == ["deterministic", "default", None]
+    assert lines[-1]["summary"] == summary
+
+
 def test_jax_eval_cli_reads_a_port_checkpoint(data_root, tmp_path):
     """The slice as a whole: a port checkpoint (from the train CLI, its
     objectness-1 logit raised so that it detects; f32 decode in its
@@ -474,7 +504,7 @@ def test_adam_state_of_a_jax_checkpoint(case, tmp_path):
     from spacap3d_tpu.utils.checkpoint import save_checkpoint_sync as jax_save
     from spacap3d_tpu_torch.config import ModelConfig, TrainConfig
     from spacap3d_tpu_torch.models import SpaCapNet
-    from spacap3d_tpu_torch.train.step import make_optimizer
+    from spacap3d_tpu_torch.train.step import load_optimizer_state, make_optimizer
     from spacap3d_tpu_torch.utils.convert import payload_from_jax
     from spacap3d_tpu_torch.utils.jax_checkpoint import load_jax_checkpoint
     from test_torch_mul_eval import MODEL
@@ -504,7 +534,7 @@ def test_adam_state_of_a_jax_checkpoint(case, tmp_path):
     payload = payload_from_jax(load_jax_checkpoint(path), model, opt, sched,
                                tkw.get("no_detection", False))
     model.load_state_dict(payload["model_state_dict"])
-    opt.load_state_dict(payload["optimizer_state_dict"])
+    load_optimizer_state(opt, payload["optimizer_state_dict"])
     if sched is not None:
         sched.load_state_dict(payload["scheduler_state_dict"])
     assert (payload["epoch"], payload["iter"], payload["best"]) == (1, 2, {"epoch": 0,
