@@ -60,7 +60,10 @@ train step, the multiview CLIs whose packages import; ``[multiview]``
 lines), then the parallel runtimes on ranks that share the card
 (``[parallel]`` lines; tensor parallelism also with the fused decode, the
 FFN kernel's partial-sum mode on each rank's d_ff slice, which the
-``kernels`` line lists as ``ffn_partial``). Exits non-zero if any phase
+``kernels`` line lists as ``ffn_partial``; over NCCL on a world of one the
+data- and tensor-parallel steps captured with their collectives inside
+the graphs, bit-equal to eager ones in turns, their replays' launches from
+profile spans). Exits non-zero if any phase
 fails or if CUDA is missing. Prints a line per phase, a ``kernels`` JSON line and, last,
 ``{"ok": true, "device": ...}``.
 """
@@ -108,7 +111,13 @@ from spacap3d_tpu_torch.models.core import BatchNorm
 from spacap3d_tpu_torch.models.enet import init_enet
 from spacap3d_tpu_torch.ops import _build
 from spacap3d_tpu_torch.ops.ball_query import launch_ball_query
-from spacap3d_tpu_torch.parallel.mp_dryrun import GRID_MIN_IOU, grid_dataset, launch
+from spacap3d_tpu_torch.parallel.mp_dryrun import (
+    GRID_MIN_IOU,
+    adam_state,
+    grid_dataset,
+    launch,
+    recorded_masks,
+)
 from spacap3d_tpu_torch.scripts import compute_multiview_features as mv_features_cli
 from spacap3d_tpu_torch.scripts import eval as eval_cli
 from spacap3d_tpu_torch.scripts import project_multiview_features as mv_project_cli
@@ -246,7 +255,13 @@ MV_SEEN_MIN, MV_FORWARDS, MV_CLI_SCENES = 0.25, 10, 4
 # and card;
 # P3 (TP = 2 in the same world) the eval forward and one train step; P4 the
 # seed-sharded grid over 16 scenes of the cli split x 4 seeds; P5 the
-# command lines with --multihost on two ranks.
+# command lines with --multihost on two ranks. P1 and P1 TP 1 (NCCL, a
+# world of one) also run the captured steps against eager ones in turns
+# (``mp_dryrun --captured``: 3 train steps of each, then a profiled one, and
+# the TP eval forwards twice unfused, fused, fused, unfused), bit-equal
+# under deterministic algorithms; over NCCL on several cards
+# P2 and P3 run them too, held to the DP gate (PARALLEL_RTOL,
+# PARALLEL_ATOL).
 PARALLEL_TIMEOUT, PARALLEL_COLLECTIVE_S = 300, 120
 PARALLEL_P1_STEPS, PARALLEL_P1_RTOL = 3, 1e-6
 PARALLEL_RTOL, PARALLEL_ATOL = 1e-5, TRAIN_LOSS_ATOL
@@ -1981,31 +1996,6 @@ def run_train_steps(cfg, batch, what):
                       "device_busy_ms": prof.get("device_busy_ms")}
 
 
-@contextlib.contextmanager
-def recorded_masks():
-    """Within: every ``Tensor.bernoulli_`` (the dropout masks' draw in
-    ``models/core.py::dropout``) appends its result to the list it yields.
-    A mask drawn in a capture is the graph's tensor, which each replay
-    rewrites."""
-    real, masks = torch.Tensor.bernoulli_, []
-
-    def bernoulli_(self, *a, **kw):
-        masks.append(real(self, *a, **kw))
-        return masks[-1]
-
-    torch.Tensor.bernoulli_ = bernoulli_
-    try:
-        yield masks
-    finally:
-        torch.Tensor.bernoulli_ = real
-
-
-def adam_state(opt):
-    """Adam's state tensors by group, parameter index and name."""
-    return {f"{gi}.{pi}.{k}": v for gi, g in enumerate(opt.param_groups)
-            for pi, p in enumerate(g["params"]) for k, v in opt.state.get(p, {}).items()}
-
-
 def determinism_leg(cfg, tc, batches, momenta):
     """CAPTURED_TRAIN_STEPS steps of the eager and of the captured train
     step, each from seeded weights and a dropout generator seeded alike, on
@@ -3270,14 +3260,143 @@ def check_launches(what, per_call, want=CLI_WANT):
                              f"than {want}: {bad[:3]}")
 
 
+def turns_differ(turns):
+    """What differs between a captured run and its eager turns
+    (``mp_dryrun``'s ``captured_train_turns``) under ``torch.equal``:
+    per call its metrics and masks, then the state, with the largest
+    differences."""
+    out = {k: turns[k] for k in ("metrics_differ", "masks_differ") if any(turns[k])}
+    out.update({k: turns[k] for k in ("parameters_differ", "adam_state_differ",
+                                      "bn_buffers_differ") if turns[k]})
+    if not turns["generator_states_equal"]:
+        out["generator_states"] = "differ"
+    return out
+
+
+def replay_profile(profiles, want, world):
+    """A captured call's profile (``mp_dryrun.kernel_spans``) against the
+    eager call's: the replay's kernel spans by name, which must be
+    ``want``, and NCCL's device spans in each, which must be equal, and
+    at least one where the world has more than one rank (NCCL issues no
+    device work for an in-place sum over a group of one). Returns (the
+    log, the misses)."""
+    replay, eager = profiles["captured"], profiles["eager"]
+    spans = {k: replay["kernel_spans"][k] for k in want}
+    nccl = {"replay": replay["kernel_spans"]["nccl"], "eager": eager["kernel_spans"]["nccl"]}
+    misses = []
+    if replay["call"]["captured"] or spans != want:
+        misses.append(f"replay spans {spans} (call {replay['call']}), not {want}")
+    if nccl["replay"] != nccl["eager"] or (world > 1 and not nccl["replay"]):
+        misses.append(f"NCCL spans {nccl}")
+    return {"replay_spans": spans, "nccl_spans": nccl,
+            "eager_collectives": eager["collectives"],
+            "nccl_span_names": replay["nccl_device_spans"],
+            "incomplete_profiles": [replay["incomplete_profiles"],
+                                    eager["incomplete_profiles"]]}, misses
+
+
+def turns_ms(ms):
+    """Each kind's call ms in turns, and their median after the first (a
+    captured run's first call is its warm-up and capture)."""
+    return {k: {"each": v, "median_after_first": float(np.median(v[1:]))}
+            for k, v in ms.items()}
+
+
+def parallel_tp1(out, cfg, smi, launches):
+    """P1 TP 1: tensor parallelism at tp 1 on NCCL over a world of one
+    (``make_tp_mesh(1)``: every attention and FFN all-reduce a collective
+    over a group of one), the captured steps against eager ones in turns
+    under deterministic algorithms: the train step at the default dropout
+    bit-equal, the eval forward unfused and fused with every output
+    ``torch.equal``; the launches from a replay's kernel spans (FPS 2,
+    ball query 5, and fused ``generator_argmax`` 31, ``ffn_partial``
+    192), NCCL's spans of a replay equal to the eager call's; ms in turns
+    and peak reserved memory."""
+    r = dryrun(os.path.join(out, "p1_tp1"), 1, "nccl", cfg, "--legs", "tp", "--tp", 1,
+               "--global_batch", B, "--steps", 1, "--dropout", cfg.transformer_dropout,
+               "--captured", "--deterministic")[0]["tp"]
+    train, ev = r["captured"], r["captured_eval"]
+    misses = {}
+    if turns_differ(train):
+        misses["train"] = turns_differ(train)
+    train_prof, m = replay_profile(train["profiles"], TRAIN_WANT, 1)
+    if m:
+        misses["train_profile"] = m
+    wants = {"unfused": TRAIN_WANT, "fused": TP_FUSED_WANT}
+    eval_log = {}
+    for name, want in wants.items():
+        e = ev[name]
+        prof, m = replay_profile(e["profiles"], want, 1)
+        if any(e["differ"]) or [c["captured"] for c in e["calls"]][1:] != [False] * (
+                len(e["calls"]) - 1) or m:
+            misses[name] = {"differ": e["differ"], "calls": e["calls"], "profile": m}
+        eval_log[name] = {"ms": turns_ms(e["ms"]), "calls": e["calls"], **prof}
+        launches[f"P1_tp1_{name}_replay"] = [e["profiles"]["captured"]["kernel_spans"]]
+    launches["P1_tp1_step_replay"] = [train["profiles"]["captured"]["kernel_spans"]]
+    log("parallel", leg="P1 TP 1", backend="nccl", world=1, tp=1,
+        sharded_parameters=r["sharded_parameters"],
+        train={"steps": train["steps"], "ms": turns_ms(train["ms"]), "calls": train["calls"],
+               "masks_per_step": train["masks_per_step"], "bit_equal": not turns_differ(train),
+               **train_prof, "peak_reserved_gib": train["peak_reserved_gib"]},
+        eval=eval_log, eval_peak_reserved_gib=ev["peak_reserved_gib"], misses=misses,
+        nvidia_smi=smi)
+    if misses:
+        raise AssertionError(f"P1 TP 1: {misses}")
+
+
+def parallel_captured_ranks(results, ranks, launches, smi):
+    """P2 and P3 captured, over NCCL on ``ranks`` cards: each rank's
+    captured DP and TP train steps against its eager turns, every metric
+    within PARALLEL_RTOL plus PARALLEL_ATOL (the backward's atomics make
+    two runs of one step differ in the last bits; what differs is logged
+    with its largest difference), the ranks' parameters bit-equal; the TP
+    eval forwards' tokens equal to the eager ones and objectness within
+    PARALLEL_OBJ_ATOL; the launches and NCCL's spans of each replay."""
+    misses, entries = {}, {}
+    for leg, want in (("dp", TRAIN_WANT), ("tp", TRAIN_WANT)):
+        turns = [r[leg]["captured"] for r in results]
+        for rank, t in enumerate(turns):
+            bad = [metric_misses(c, e, PARALLEL_RTOL, PARALLEL_ATOL)
+                   for c, e in zip(t["metrics"]["captured"], t["metrics"]["eager"])]
+            prof, m = replay_profile(t["profiles"], want, ranks)
+            if any(bad) or m:
+                misses[f"{leg} rank {rank}"] = {"metrics": bad, "profile": m}
+            entries.setdefault(leg, []).append({
+                "ms": turns_ms(t["ms"]), "calls": t["calls"], "differ": turns_differ(t),
+                **prof, "peak_reserved_gib": t["peak_reserved_gib"]})
+        if len({t["param_digest"] for t in turns}) != 1:
+            misses[f"{leg} ranks"] = "captured parameters differ across ranks"
+        launches[f"P2_{leg}_step_replay" if leg == "dp" else "P3_tp_step_replay"] = [
+            t["profiles"]["captured"]["kernel_spans"] for t in turns]
+    for name, want in (("unfused", TRAIN_WANT), ("fused", TP_FUSED_WANT)):
+        for rank, r in enumerate(results):
+            e = r["tp"]["captured_eval"][name]
+            prof, m = replay_profile(e["profiles"], want, ranks)
+            bad = [d for d in e["differ"] if "lang_cap" in d
+                   or d.get("objectness_scores", 0.0) > PARALLEL_OBJ_ATOL]
+            if bad or m:
+                misses[f"{name} eval rank {rank}"] = {"differ": bad, "profile": m}
+            entries.setdefault(f"tp_eval_{name}", []).append({
+                "ms": turns_ms(e["ms"]), "calls": e["calls"], "differ": e["differ"], **prof})
+        launches[f"P3_tp_{name}_replay"] = [
+            r["tp"]["captured_eval"][name]["profiles"]["captured"]["kernel_spans"]
+            for r in results]
+    log("parallel", leg="P2-P3 captured", backend="nccl", world=ranks, per_rank=entries,
+        eval_peak_reserved_gib=[r["tp"]["captured_eval"]["peak_reserved_gib"] for r in results],
+        misses=misses, nvidia_smi=smi)
+    if misses:
+        raise AssertionError(f"P2-P3 captured: {misses}")
+
+
 def parallel_shared_card(out, cfg, smi, launches):
-    """P0 and P1 of ``phase_parallel``: NCCL refusing two ranks on the card,
-    and NCCL over a world of one against the plain steps."""
+    """P0, P1 and P1 TP 1 of ``phase_parallel``: NCCL refusing two ranks on
+    the card, and NCCL over a world of one against the plain steps, the
+    captured steps against eager ones."""
     refuse_nccl(os.path.join(out, "p0"))
     # P1: NCCL, a world of one
     p1 = dryrun(os.path.join(out, "p1"), 1, "nccl", cfg, "--legs", "dp",
                 "--global_batch", B, "--steps", PARALLEL_P1_STEPS, "--dropout",
-                cfg.transformer_dropout, "--plain", "--deterministic")[0]["dp"]
+                cfg.transformer_dropout, "--plain", "--deterministic", "--captured")[0]["dp"]
     misses = [metric_misses(g["metrics"], w["metrics"], PARALLEL_P1_RTOL, 0.0)
               for g, w in zip(p1["steps"], p1["plain_steps"])]
     check_launches("P1 steps", [s["launches"] for s in p1["steps"]])
@@ -3290,6 +3409,21 @@ def parallel_shared_card(out, cfg, smi, launches):
         launches_per_step=launches["P1_nccl_step"], nvidia_smi=smi)
     if any(misses):
         raise AssertionError(f"P1: group path against plain: {misses}")
+    # the captured DP step against eager ones in turns, both against plain
+    cap = p1["captured"]
+    cap_misses = {kind: [metric_misses(g, w["metrics"], PARALLEL_P1_RTOL, 0.0)
+                         for g, w in zip(cap["metrics"][kind], p1["plain_steps"])]
+                  for kind in ("eager", "captured")}
+    prof, prof_misses = replay_profile(cap["profiles"], TRAIN_WANT, 1)
+    launches["P1_nccl_step_replay"] = [cap["profiles"]["captured"]["kernel_spans"]]
+    log("parallel", leg="P1 captured", backend="nccl", world=1, steps=cap["steps"],
+        ms=turns_ms(cap["ms"]), calls=cap["calls"], masks_per_step=cap["masks_per_step"],
+        bit_equal=not turns_differ(cap), differ=turns_differ(cap), plain_misses=cap_misses,
+        **prof, peak_reserved_gib=cap["peak_reserved_gib"], nvidia_smi=smi)
+    if turns_differ(cap) or any(any(m) for m in cap_misses.values()) or prof_misses:
+        raise AssertionError(f"P1 captured: {turns_differ(cap)}, against plain {cap_misses}, "
+                             f"profile {prof_misses}")
+    parallel_tp1(out, cfg, smi, launches)
 
 
 def phase_parallel(smi, ranks=2, backend="gloo"):
@@ -3326,12 +3460,16 @@ def phase_parallel(smi, ranks=2, backend="gloo"):
     validation) writes one run directory, from rank 0; the eval CLI with
     --multihost --mul_eval gives the 1-process CLI's rows. Every other train
     step and forward of P1-P4 launches FPS 2, ball query 5 and the decode
-    kernels 0 times on each rank. Returns those launches by leg.
+    kernels 0 times on each rank. P1 also runs the captured DP step against
+    eager ones in turns (``parallel_shared_card``), and P1 TP 1 the captured
+    TP steps at tp 1 (``parallel_tp1``). Returns the launches by leg (a
+    replay's from its profile's kernel spans, with NCCL's under ``nccl``).
 
     ``python3 chip_smoke.py --ranks N``, on a machine of N cards, runs
     P2-P5 alone over N ranks, one card a rank over NCCL (TP then splits the
-    world into N / 2 data x 2 model ranks); P0 and P1 belong to the shared
-    card. It is the entry point of the multi-card checks until a
+    world into N / 2 data x 2 model ranks), the steps of P2, P3 and P5
+    captured (P2 and P3 also eager, in turns: ``parallel_captured_ranks``);
+    P0 and P1 belong to the shared card. It is the entry point of the multi-card checks until a
     multi-card cell exists."""
     cfg = ModelConfig()
     dev = torch.device(DEV)
@@ -3360,7 +3498,8 @@ def phase_parallel(smi, ranks=2, backend="gloo"):
                        os.path.join(root, "ScanRefer_filtered_train.json"), "--vocab",
                        os.path.join(root, "ScanRefer_vocabulary.json"), "--scenes",
                        PARALLEL_GRID_SCENES, "--seeds", ",".join(map(str, seeds)),
-                       "--grid_batch", B, "--workers", 4)
+                       "--grid_batch", B, "--workers", 4,
+                       *(["--captured"] if backend == "nccl" else []))
         dp = [r["dp"] for r in results]
         plain = dp[0]["plain_steps"][0]["metrics"]
         p2_miss = [metric_misses(d["steps"][0]["metrics"], plain, PARALLEL_RTOL, PARALLEL_ATOL)
@@ -3381,6 +3520,8 @@ def phase_parallel(smi, ranks=2, backend="gloo"):
             nvidia_smi=smi)
         if any(p2_miss) or not all(same.values()):
             raise AssertionError(f"P2: {p2_miss}, ranks bit-equal {same}")
+        if backend == "nccl":
+            parallel_captured_ranks(results, ranks, launches, smi)
 
         tp = [r["tp"] for r in results]
         got = torch.load(os.path.join(p2_dir, "tp_eval.pt"), weights_only=True)

@@ -52,7 +52,6 @@ from spacap3d_tpu_torch.models.core import (
     reduce_from_group,
     ref_layer_norm,
     run_layers,
-    split_generators,
 )
 from spacap3d_tpu_torch.ops.nn_distance import nn_distance
 from spacap3d_tpu_torch.utils.segments import Segments, run_eager
@@ -443,12 +442,11 @@ class Captioner(nn.Module):
         with the relation head, ``relation_pred`` (B, K, K, 9). Dropout at
         ``transformer_dropout`` in train mode, drawn from ``gen`` (under
         tensor parallelism the rank's heads and FFN columns draw from a
-        generator of their own, ``split_generators``); the source
-        embedding's BN moves its running stats at ``bn_momentum``."""
+        generator of their own: ``gen`` is then the ``SplitGenerators`` that
+        the train step split, ``train/step.py::dropout_generators``); the
+        source embedding's BN moves its running stats at ``bn_momentum``."""
         cfg = self.cfg
         rate = cfg.transformer_dropout if self.training else 0.0
-        if self.tp_group is not None and gen is not None:
-            gen = split_generators(gen, self.tp_rank)
         src = ep["aggregated_vote_features"]                    # (B, K, C)
         c = src.shape[-1]
         # the proposal nearest the annotated object

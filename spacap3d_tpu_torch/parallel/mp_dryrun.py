@@ -16,13 +16,29 @@ process group (``multihost.initialize_from_env``) and runs its legs:
   several steps only with ``--deterministic``; ``--pin`` makes the
   data-parallel step's FPS and ball-query indices and max-pools take the
   plain step's, and counts where its own differ).
-* ``tp``: tensor parallelism over model groups of ``TP`` ranks
+* ``tp``: tensor parallelism over model groups of ``--tp`` ranks (``TP``
+  by default; 1 on a world of one makes every attention and FFN
+  all-reduce a collective over a group of one)
   (``parallel/tp.py``): the eval forward's tokens and objectness on the
   global batch, and one train step, from the same weights; also the eval
   forward with ``eval_decode_fused`` (the fused decode kernels, the FFN's
   in its partial-sum mode on the rank's d_ff slice), its launch counts set
   to 0 just before it and read just after, and both forwards timed in
   turns.
+* ``--captured``: the dp and tp legs also run the captured steps
+  (``train/capture.py``; their collectives inside the graphs, where every
+  group is NCCL) beside eager ones from the same weights, batches and
+  generators, in turns: CAPTURED_STEPS train steps of each, then the
+  eval forwards of the tp leg, unfused and fused. Per rank: each call's ms
+  and what the program did (``captured``, the graph indices ``replayed``,
+  the rank agreement's ms), the tensors where the captured run differs from
+  the eager one (metrics, dropout masks, outputs, then parameters, Adam
+  state, BN buffers, generator states; with their largest differences),
+  the launches of a profiled replay and of a profiled eager call from
+  their kernel spans (a replay counts nothing in Python; NCCL's kernels
+  under ``nccl``), the eager call's collectives, and the peak reserved
+  memory. The ``--pin`` hooks and the index tape cannot act inside a
+  replay: the pinned comparison stays on the eager step.
 * ``grid``: the seed-sharded ``mul_eval_grid_multihost`` over a synthetic
   split (``--data_root``).
 * ``refuse_nccl``: asks for NCCL and exits 0 only if the runtime refuses
@@ -50,6 +66,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from spacap3d_tpu_torch import ops
 from spacap3d_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
@@ -65,6 +83,7 @@ from spacap3d_tpu_torch.train.step import (
     make_eval_step,
     make_optimizer,
     make_train_step,
+    to_device_batch,
 )
 
 # the tiny smoke config of the JAX worker (fast on the CPU)
@@ -84,6 +103,15 @@ POOLS = {**{f"sa{i}": f"backbone_net.sa{i}.mlp_module" for i in range(1, 5)},
 KERNELS = {"fps": ops.furthest_point_sample, "ball_query": ops.ball_query,
            "generator_argmax": ops.generator_argmax, "ffn": ops.ffn,
            "ffn_partial": ops.ffn_partial}
+# device spans by name in a profile: the kernels', and NCCL's
+PROFILED = {"fps": "fps_kernel", "ball_query": "ball_query_kernel",
+            "generator_argmax": "gen_argmax_kernel", "ffn": "ffn_kernel",
+            "ffn_partial": "ffn_partial_kernel", "nccl": "nccl"}
+# marker kernels (``torch.cuda._sleep``) that open a profile's window: a
+# profile can drop the device spans at its head
+PROFILE_MARKERS, PROFILE_MARKER_CYCLES = 64, 1_000
+# ``--captured``: train steps of each kind in turns (a capture, then replays)
+CAPTURED_STEPS = 3
 
 
 def parse_args(argv=None):
@@ -112,6 +140,9 @@ def parse_args(argv=None):
                         "and neighbour max-pools take those of rank 0's plain step, whose "
                         "discrete choices can flip between the two paths' roundings of the "
                         "BN sums; the flips are counted")
+    p.add_argument("--tp", type=int, default=TP, help="tp: the model group's size")
+    p.add_argument("--captured", action="store_true",
+                   help="dp, tp: also the captured steps against eager ones, in turns")
     p.add_argument("--deterministic", action="store_true",
                    help="torch's deterministic algorithms (the CUDA backward otherwise sums "
                         "with atomics, so two runs of one step differ in the last bits)")
@@ -204,6 +235,83 @@ def bn_state(model) -> Dict[str, torch.Tensor]:
             if isinstance(m, BatchNorm) for k in ("running_mean", "running_var")}
 
 
+def adam_state(opt) -> Dict[str, torch.Tensor]:
+    """The optimizer's state tensors by group, parameter index and name."""
+    return {f"{gi}.{pi}.{k}": v for gi, g in enumerate(opt.param_groups)
+            for pi, p in enumerate(g["params"]) for k, v in opt.state.get(p, {}).items()
+            if torch.is_tensor(v)}
+
+
+def differences(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The entries of two tensor dicts that are not ``torch.equal``, each
+    with its largest absolute difference (inf where only one dict holds
+    it or the shapes differ)."""
+    out = {}
+    for k in sorted(set(a) | set(b)):
+        x, y = a.get(k), b.get(k)
+        if x is None or y is None or x.shape != y.shape:
+            out[k] = float("inf")
+        elif not torch.equal(x, y):
+            out[k] = float((x.to(torch.float64) - y.to(torch.float64)).abs().max())
+    return out
+
+
+@contextlib.contextmanager
+def recorded_masks():
+    """Within: every ``Tensor.bernoulli_`` (the dropout masks' draw in
+    ``models/core.py::dropout``) appends its result to the list it yields.
+    A mask drawn in a capture is the graph's tensor, which each replay
+    rewrites."""
+    real, masks = torch.Tensor.bernoulli_, []
+
+    def bernoulli_(self, *a, **kw):
+        masks.append(real(self, *a, **kw))
+        return masks[-1]
+
+    torch.Tensor.bernoulli_ = bernoulli_
+    try:
+        yield masks
+    finally:
+        torch.Tensor.bernoulli_ = real
+
+
+def kernel_spans(fn, dev: torch.device, want: Optional[Dict[str, int]] = None,
+                 tries: int = 3) -> Optional[Dict]:
+    """One call of ``fn`` under torch.profiler, on CUDA (None elsewhere):
+    its device spans by ``PROFILED`` name and the collectives the host
+    issued (the process group's ``nccl:`` ranges; a replay issues none),
+    counted after PROFILE_MARKERS marker kernels that open the window. A
+    profile whose kernel spans differ from ``want`` (the launches of one
+    call) is taken again, up to ``tries`` times."""
+    if dev.type != "cuda":
+        return None
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            for _ in range(PROFILE_MARKERS):
+                torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+            torch.cuda.synchronize(dev)
+            fn()
+            torch.cuda.synchronize(dev)
+        events = p.events()
+        device = [e for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        opened = max((e.time_range.end for e in device if "spin_kernel" in e.name),
+                     default=float("-inf"))
+        names = [e.name for e in device if e.time_range.start >= opened]
+        counted = {k: sum(pat in n for n in names) for k, pat in PROFILED.items()}
+        complete = want is None or all(counted[k] == n for k, n in want.items())
+        if complete:
+            break
+    return {"kernel_spans": counted, "complete": complete, "incomplete_profiles": attempt,
+            "collectives": sum(e.device_type == DeviceType.CPU and e.name.startswith("nccl:")
+                               for e in events),
+            "nccl_device_spans": [n[:80] for n in names if "nccl" in n.lower()][:8]}
+
+
+def peak_reserved_gib(dev: torch.device) -> Optional[float]:
+    return torch.cuda.max_memory_reserved(dev) / 2 ** 30 if dev.type == "cuda" else None
+
+
 class Worker:
     def __init__(self, args, rank: int, world: int):
         self.args, self.rank, self.world = args, rank, world
@@ -265,6 +373,156 @@ class Worker:
                         "launches": {k: f.launches - before[k] for k, f in KERNELS.items()}})
         return out
 
+    def timed(self, fn):
+        """(``fn()``, its synchronised wall ms)."""
+        synchronize(self.dev)
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(self.dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    @staticmethod
+    def program_call(step) -> Optional[Dict]:
+        """What the last call of ``step`` did: None where it ran eagerly,
+        else whether it captured, the graphs it replayed and the rank
+        agreement's ms."""
+        program = step.program
+        if program is None:
+            return None
+        last = program.last
+        agree = last.get("agree_s")
+        return {"captured": last["captured"], "replayed": last["replayed"],
+                "agree_ms": None if agree is None else agree * 1e3}
+
+    def whole_digest(self, model) -> str:
+        """The digest of ``model``'s parameters, gathered whole under TP (a
+        collective)."""
+        params = dict(model.named_parameters())
+        if getattr(model, "tp_mesh", None) is not None:
+            params = tp_mod.gather_state_dict(params, model.tp_mesh, model.tp_specs)
+        return digest(params)
+
+    def captured_train_turns(self, start, batch, group, data_rank, prepare=None) -> Dict:
+        """CAPTURED_STEPS train steps of the eager and of the captured
+        step (``make_train_step(capture=...)``), each on a model from the
+        weights ``start`` (``prepare`` cuts it for TP), in turns, each call
+        with the dropout generator of its iteration, then one profiled call
+        of each (``kernel_spans``). What differs under ``torch.equal``
+        (module docstring), each call's ms and what the program did, the
+        ranks' digest of the captured model's parameters, and the peak
+        reserved memory over the turns."""
+        tc = self.train_config()
+        runs = {}
+        for kind in ("eager", "captured"):
+            model = self.fresh_model_local(start)
+            if prepare is not None:
+                prepare(model)
+            opt = self.optimizer(model, tc)
+            runs[kind] = {"model": model, "opt": opt, "metrics": [], "masks": [], "ms": [],
+                          "calls": [], "graph_masks": [], "gens": [],
+                          "step": make_train_step(self.cfg, tc, opt, device=self.dev,
+                                                  group=group, capture=kind == "captured")}
+        if runs["captured"]["step"].program is None:
+            raise AssertionError("the captured train step has no program: a group is not NCCL")
+        if self.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.dev)
+        profiles = {}
+        for it in range(CAPTURED_STEPS + 1):
+            profiled = it == CAPTURED_STEPS
+            for kind in (("eager", "captured"), ("captured", "eager"))[it % 2 and not profiled]:
+                run = runs[kind]
+                gen = (dropout_generator(self.dev, SEED, it, data_rank)
+                       if self.cfg.transformer_dropout else None)
+
+                def call(run=run, gen=gen):
+                    return run["step"](run["model"], batch, gen, 0.1)
+                if profiled:
+                    before = {k: f.launches for k, f in KERNELS.items()}
+                    out = {}
+                    want = (None if kind == "eager" else
+                            {k: n for k, n in profiles["eager"]["wrapper_launches"].items()})
+                    profiles[kind] = kernel_spans(lambda: out.update(call()), self.dev, want) or {}
+                    profiles[kind]["wrapper_launches"] = {k: f.launches - before[k]
+                                                         for k, f in KERNELS.items()}
+                    profiles[kind]["call"] = self.program_call(run["step"])
+                    metrics = out
+                    masks = []
+                else:
+                    with recorded_masks() as rec:
+                        metrics, ms = self.timed(call)
+                    masks = list(rec)
+                    run["ms"].append(ms)
+                    run["calls"].append(self.program_call(run["step"]))
+                    if kind == "captured":
+                        if run["calls"][-1]["captured"]:
+                            half = len(masks) // 2
+                            masks, run["graph_masks"] = masks[:half], masks[half:]
+                        elif not masks:     # a replay draws into the graph's masks
+                            masks = run["graph_masks"]
+                run["masks"].append([t.clone() for t in masks])
+                run["metrics"].append(metrics)
+                run["gens"].append(None if gen is None else gen.get_state())
+        e, c = runs["eager"], runs["captured"]
+        return {
+            "steps": CAPTURED_STEPS, "ms": {"eager": e["ms"], "captured": c["ms"]},
+            "metrics": {kind: [{k: float(v) for k, v in m.items()} for m in run["metrics"]]
+                        for kind, run in runs.items()},
+            "calls": c["calls"], "profiles": profiles,
+            "metrics_differ": [differences(a, b) for a, b in zip(c["metrics"], e["metrics"])],
+            "masks_per_step": [len(m) for m in e["masks"]],
+            "masks_differ": [[i for i, (a, b) in enumerate(zip(cm, em)) if not torch.equal(a, b)]
+                             + ([] if len(cm) == len(em) else ["count"])
+                             for cm, em in zip(c["masks"], e["masks"])],
+            "parameters_differ": differences(dict(c["model"].named_parameters()),
+                                             dict(e["model"].named_parameters())),
+            "adam_state_differ": differences(adam_state(c["opt"]), adam_state(e["opt"])),
+            "bn_buffers_differ": differences(bn_state(c["model"]), bn_state(e["model"])),
+            "generator_states_equal": all(
+                (a is None and b is None) or torch.equal(a, b)
+                for a, b in zip(c["gens"], e["gens"])),
+            "param_digest": self.whole_digest(c["model"]),
+            "peak_reserved_gib": peak_reserved_gib(self.dev),
+        }
+
+    def captured_eval_turns(self, paths, batch, want, turns: int = 2) -> Dict:
+        """The eval forward of each path (name -> model) through the eager
+        and the captured step, in turns (unfused, fused, fused, unfused,
+        ``turns`` times, each path's eager and captured call in alternating
+        order),
+        then one profiled call of each (``want``: each path's launches).
+        Per path: each call's ms, what the program did, the outputs where
+        the captured forward differs from the eager one under
+        ``torch.equal``, the profiles, and the peak reserved memory."""
+        steps = {name: {"eager": make_eval_step(model.cfg, device=self.dev, capture=False),
+                        "captured": make_eval_step(model.cfg, device=self.dev)}
+                 for name, model in paths.items()}
+        if any(s["captured"].program is None for s in steps.values()):
+            raise AssertionError("the captured eval step has no program")
+        res = {name: {"ms": {"eager": [], "captured": []}, "calls": [], "differ": [],
+                      "profiles": {}} for name in paths}
+        if self.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.dev)
+        order = ["unfused", "fused", "fused", "unfused"] * turns
+        for i, name in enumerate(n for n in order if n in paths):
+            outs = {}
+            for kind in (("eager", "captured"), ("captured", "eager"))[i % 2]:
+                step = steps[name][kind]
+                outs[kind], ms = self.timed(lambda: step(paths[name], batch))
+                res[name]["ms"][kind].append(ms)
+            res[name]["calls"].append(self.program_call(steps[name]["captured"]))
+            res[name]["differ"].append(differences(outs["captured"], outs["eager"]))
+        for name in paths:
+            for kind in ("eager", "captured"):
+                step = steps[name][kind]
+                before = {k: f.launches for k, f in KERNELS.items()}
+                prof = kernel_spans(lambda: step(paths[name], batch), self.dev,
+                                    want[name]) or {}
+                prof["wrapper_launches"] = {k: f.launches - before[k] for k, f in KERNELS.items()}
+                prof["call"] = self.program_call(step)
+                res[name]["profiles"][kind] = prof
+        res["peak_reserved_gib"] = peak_reserved_gib(self.dev)
+        return res
+
     def save(self, name: str, obj) -> None:
         if self.rank == 0:
             torch.save(obj, os.path.join(self.args.out, name))
@@ -316,6 +574,8 @@ class Worker:
                "param_abs_sum": float(sum(p.detach().double().abs().sum() for p in
                                           params.values()))}
         self.save("dp_state.pt", {k: v.cpu() for k, v in model.state_dict().items()})
+        if self.args.captured:
+            res["captured"] = self.captured_train_turns(start, local, group, self.rank)
         if plain is not None:
             res["plain_steps"] = plain
             res["plain_rel"] = [max(abs(g["metrics"][k] - p["metrics"][k])
@@ -379,7 +639,7 @@ class Worker:
         return token_digest
 
     def leg_tp(self) -> Dict:
-        mesh = tp_mod.make_tp_mesh(TP)
+        mesh = tp_mod.make_tp_mesh(self.args.tp)
         batch = self.global_batch()
         res = {"tp": mesh.tp, "model_rank": mesh.model_rank, "data_rank": mesh.data_rank}
         model = self.fresh_model()
@@ -388,13 +648,13 @@ class Worker:
         res["sharded_parameters"] = tp_mod.count_sharded(model)
         eval_batch = {k: batch[k] for k in EVAL_INPUT_KEYS}
         before = {k: f.launches for k, f in KERNELS.items()}
-        out = make_eval_step(self.cfg, device=self.dev)(model, eval_batch)
+        out = make_eval_step(self.cfg, device=self.dev, capture=False)(model, eval_batch)
         res["eval_launches"] = {k: f.launches - before[k] for k, f in KERNELS.items()}
         res["token_digest"] = self.tp_tokens("tp_eval.pt", out)
         cfg = dataclasses.replace(self.cfg, eval_decode_fused=True)
         fused = self.fresh_model_local(start, cfg)   # the flag travels in the config
         tp_mod.shard_model(fused, mesh)
-        fused_step = make_eval_step(cfg, device=self.dev)
+        fused_step = make_eval_step(cfg, device=self.dev, capture=False)
         for f in KERNELS.values():
             f.launches = 0
         out = fused_step(fused, eval_batch)
@@ -402,13 +662,24 @@ class Worker:
         res["fused"] = {"eval_launches": {k: f.launches for k, f in KERNELS.items()},
                         "token_digest": self.tp_tokens("tp_eval_fused.pt", out)}
         res["eval_ms"] = self.eval_times({
-            "unfused": (make_eval_step(self.cfg, device=self.dev), model),
+            "unfused": (make_eval_step(self.cfg, device=self.dev, capture=False), model),
             "fused": (fused_step, fused)}, eval_batch)
+        if self.args.captured:
+            unfused_want = {k: (res["eval_launches"][k] if k in ("fps", "ball_query") else 0)
+                            for k in KERNELS}
+            res["captured_eval"] = self.captured_eval_turns(
+                {"unfused": model, "fused": fused},
+                to_device_batch(eval_batch, self.dev),
+                {"unfused": unfused_want, "fused": res["fused"]["eval_launches"]})
 
         model = self.fresh_model_local(start)
         tp_mod.shard_model(model, mesh)
         local = mesh_mod.shard_batch(mesh.data, batch)
         res["steps"] = self.run_steps(model, local, mesh.data, mesh.data_rank)
+        if self.args.captured:
+            res["captured"] = self.captured_train_turns(
+                start, local, mesh.data, mesh.data_rank,
+                prepare=lambda m: tp_mod.shard_model(m, mesh))
         full = tp_mod.gather_state_dict(model.state_dict(), mesh, model.tp_specs)
         res["param_digest"] = digest({k: full[k] for k, _ in model.named_parameters()})
         self.save("tp_state.pt", {k: v.cpu() for k, v in full.items()})

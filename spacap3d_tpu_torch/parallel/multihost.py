@@ -204,6 +204,19 @@ def allgather_bytes(payload: bytes) -> List[bytes]:
     return [bytes(o[:int(s)].numpy()) for o, s in zip(out, sizes)]
 
 
+def allgather_ints(value: int) -> List[int]:
+    """All-gather one integer a rank over the gloo side group (one
+    all-gather of an int64); the rank-indexed list."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return [value]
+    if _side_group is None:
+        raise RuntimeError("no side group: join the process group through "
+                           "multihost.initialize_from_env")
+    out = [torch.zeros(1, dtype=torch.int64) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, torch.tensor([value], dtype=torch.int64), group=_side_group)
+    return [int(o) for o in out]
+
+
 def allgather_pyobj(obj) -> List:
     """All-gather one JSON-serialisable object a rank; returns the
     rank-indexed list (equal on every rank)."""

@@ -19,8 +19,13 @@ On CUDA the train step runs captured (``train/step.py::make_train_step``:
 one CUDA graph a step, replayed with the batch, the momentum and the
 dropout generator's state loaded into it), and so does the validation's
 eval forward; the validation's graphs are dropped after each validation,
-the train graph is kept. Data and tensor parallelism run the steps
-eagerly.
+the train graph is kept. Under data and tensor parallelism over NCCL
+(``--multihost`` on CUDA) the steps capture too, their collectives inside
+the graphs; every rank runs the same iterations and validations, so every
+rank captures, replays, clears and recaptures at the same call, as the
+steps' rank agreement requires (``train/capture.py``). Over gloo (ranks
+sharing a card, or on the CPU) they run eagerly. The ``timing`` fields
+mean the same either way.
 
 Dropout masks come from a generator on the model's device seeded from
 (``TrainConfig.seed``, the global iteration) at every step, so a resumed
@@ -37,7 +42,8 @@ best-checkpoint decisions agree; rank 0 alone writes logs, checkpoints,
 ``_NullLogger``). Dropout generators are seeded from (seed, global
 iteration, data rank); under TP the captioner draws the masks of the
 rank's heads and FFN columns from a second generator that folds in the
-model rank (``models/core.py::split_generators``).
+model rank (``models/core.py::split_generators``, split by the train step
+before its graph).
 
 Tensor parallelism (``tp_mesh``, ``parallel/tp.py``): the captioner is
 cut to this rank's slices before the optimizer is built, the data group

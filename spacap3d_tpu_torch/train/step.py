@@ -10,7 +10,10 @@ eval mode, then the teacher-forced captioner over the greedy tokens.
 On CUDA both steps run captured by default (``train/capture.py``), the
 counterparts of the JAX package's ``jax.jit`` of its steps: the train
 step's forward, losses, backward and Adam update replay as one CUDA graph,
-its scheduler steps on the host between replays.
+its scheduler steps on the host between replays. So do the data- and
+tensor-parallel steps over NCCL groups, their collectives inside the
+graphs, as the JAX package jits its steps over its mesh; a step with a
+gloo group runs eagerly (``captured``).
 
 Data parallelism (``group``): the train step on each rank of a process
 group computes what the JAX package's step computes on one mesh-sharded
@@ -32,7 +35,7 @@ import torch.distributed as dist
 
 from spacap3d_tpu_torch.config import ModelConfig, TrainConfig
 from spacap3d_tpu_torch.device import resolve_device
-from spacap3d_tpu_torch.models.core import Momentum, set_batch_norm_group
+from spacap3d_tpu_torch.models.core import Momentum, set_batch_norm_group, split_generators
 from spacap3d_tpu_torch.parallel.tp import average_replicated_gradients
 from spacap3d_tpu_torch.ops.nn_distance import nn_distance
 from spacap3d_tpu_torch.train.capture import CapturedFunction, optimizer_state
@@ -156,17 +159,44 @@ def eval_segments(cfg: ModelConfig, compact: bool) -> Callable[[torch.nn.Module]
     return segments_of
 
 
+def group_backend(group) -> str:
+    """The backend of a process group (``"nccl"`` or ``"gloo"``)."""
+    return dist.get_backend(group)
+
+
+def step_groups(model=None, group=None) -> list:
+    """The process groups a step on ``model`` runs collectives over, each
+    once: the data-parallel ``group``, and for a model cut by
+    ``parallel/tp.py::shard_model`` its model group and data group."""
+    groups = [] if group is None else [group]
+    tp_group = getattr(getattr(model, "caption", None), "tp_group", None)
+    if tp_group is not None:
+        mesh = getattr(model, "tp_mesh", None)
+        groups += [tp_group] + ([] if mesh is None else [mesh.data])
+    return list({id(g): g for g in groups}.values())
+
+
 def captured(capture: bool, device: torch.device, model=None, group=None) -> bool:
     """Whether an eval or train step on ``device`` runs captured (the
-    steps' ``capture``): on CUDA unless ``capture`` is False; not for a
-    train step with a data-parallel ``group``, nor, with ``model``, for a
-    model whose captioner has a tensor-parallel group (their all-reduces
-    go through the host)."""
-    if group is not None:
+    steps' ``capture``): on CUDA unless ``capture`` is False, and only
+    where every process group of the step (``step_groups``: a
+    data-parallel ``group``, a tensor-parallel model's groups) is NCCL,
+    whose collectives a CUDA graph records. A gloo group's collectives run
+    on the host, so a step with one runs eagerly."""
+    if not (capture and device.type == "cuda"):
         return False
-    if model is not None and getattr(getattr(model, "caption", None), "tp_group", None) is not None:
-        return False
-    return capture and device.type == "cuda"
+    return all(group_backend(g) == "nccl" for g in step_groups(model, group))
+
+
+def dropout_generators(model, gen):
+    """The step's dropout generators for ``model``: ``gen``, or under
+    tensor parallelism ``gen`` and the model rank's own
+    (``models/core.py::split_generators``), split before the step's
+    function so that a captured step owns and registers both."""
+    tp_group = getattr(getattr(model, "caption", None), "tp_group", None)
+    if gen is None or tp_group is None:
+        return gen
+    return split_generators(gen, model.caption.tp_rank)
 
 
 def make_eval_step(cfg: ModelConfig, device="cuda", compact: bool = False,
@@ -184,12 +214,15 @@ def make_eval_step(cfg: ModelConfig, device="cuda", compact: bool = False,
     replays the forward from CUDA graphs from the upload on: one graph, or
     with the decode's early exit a graph a stage and the tail, the host's
     all-EOS test between them. The point and centre tables are read where
-    they lie. A model cut by ``parallel/tp.py::shard_model`` runs eagerly:
-    its all-reduces go through the host. ``step.program`` is the captured
-    program (None when eager)."""
+    they lie. A model cut by ``parallel/tp.py::shard_model`` captures
+    where its groups are NCCL (``captured``), its all-reduces inside the
+    graphs, and runs eagerly over gloo; every rank of the model group
+    calls the step at once. ``step.program`` is the captured program (None
+    when eager)."""
     dev = resolve_device(device)
     segments_of = eval_segments(cfg, compact)
-    program = (CapturedFunction(segments_of, by_address=("point_table", "center_table"))
+    program = (CapturedFunction(segments_of, by_address=("point_table", "center_table"),
+                                groups_of=step_groups)
                if captured(capture, dev) else None)
 
     @torch.no_grad()
@@ -320,7 +353,9 @@ def warm_up_gradients(model: torch.nn.Module, carry: Dict):
     pool, which every replay overwrites (torch's whole-network capture);
     they hold nothing until a replay, so after the capture they take the
     eager warm-up's gradients: ``.grad`` holds the step's gradients after a
-    capture call as after any other."""
+    capture call as after any other. Under data or tensor parallelism the
+    warm-up's gradients are already reduced over the groups, as a replay's
+    are."""
     warm = [p.grad for p in model.parameters()]
     yield
     with torch.no_grad():
@@ -394,10 +429,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Op
     needs the optimizer of ``make_optimizer`` (capturable on CUDA); CUDA
     events recorded in a capture do not time a replay, so a captured step
     given ``marks`` raises ``ValueError``. With a ``group``, and for a
-    model cut by ``parallel/tp.py::shard_model``, the step runs eagerly:
-    their all-reduces go through the host. A capture or a replay that
-    fails raises. ``step.program`` is the captured program (None when
-    eager).
+    model cut by ``parallel/tp.py::shard_model``, the step captures where
+    every group is NCCL (``captured``), its collectives inside the graph,
+    every rank of the world calling it at once, and runs eagerly over
+    gloo. A capture or a replay that fails raises. ``step.program`` is the
+    captured program (None when eager).
 
     ``group``: a process group whose ranks each pass their row-block of one
     global batch (module docstring); the gradients are summed over it
@@ -408,19 +444,21 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Op
     dev = resolve_device(device)
     momentum = torch.zeros((), device=dev)
     segments_of = train_segments(cfg, tc, optimizer, momentum, group)
-    program = (CapturedFunction(segments_of, state_of=lambda: optimizer_state(optimizer))
+    program = (CapturedFunction(segments_of, state_of=lambda: optimizer_state(optimizer),
+                                groups_of=functools.partial(step_groups, group=group))
                if captured(capture, dev, group=group) else None)
 
     def step(model, batch, gen: Optional[torch.Generator] = None,
              bn_momentum: float = 0.1, marks: Optional[list] = None
              ) -> Dict[str, torch.Tensor]:
-        use_program = program is not None and captured(capture, dev, model)
+        use_program = program is not None and captured(capture, dev, model, group)
         if use_program and marks is not None:
             raise ValueError("a captured train step takes no marks: CUDA events recorded in "
                              "a capture do not time its replays; pass capture=False")
         batch = to_device_batch({k: batch[k] for k in TRAIN_KEYS}, dev)
         model.train()
         momentum.fill_(bn_momentum)
+        gen = dropout_generators(model, gen)
         set_batch_norm_group(model, group)
         try:
             if use_program:

@@ -26,6 +26,7 @@ from spacap3d_tpu_torch.ops.boxes import _CORNER_SIGNS, corner_signs
 from spacap3d_tpu_torch.ops.decode import ffn, ffn_partial, generator_argmax
 from spacap3d_tpu_torch.ops.fps import furthest_point_sample
 from spacap3d_tpu_torch.train import capture
+from spacap3d_tpu_torch.train import step as step_module
 from spacap3d_tpu_torch.train.step import captured, eval_segments, make_eval_step, to_device_batch
 from spacap3d_tpu_torch.utils.segments import Segments, run_eager
 from test_torch_eval_step import assert_outputs_match, run_both
@@ -101,14 +102,20 @@ def cpu_batch(cfg, seed, b=2):
     return to_device_batch({k: batch[k] for k in ("point_clouds", "center_label")}, CPU)
 
 
-def test_capture_resolves_by_device_and_tensor_parallelism():
+def test_capture_resolves_by_device_and_tensor_parallelism(monkeypatch):
+    """A TP model's eval step captures on CUDA where its groups are NCCL (a
+    stubbed backend) and runs eagerly over gloo, as with ``capture=False``
+    and on the CPU."""
     model = SpaCapNet(tiny_cfg())
     assert captured(True, CUDA) and captured(True, CUDA, model)
     assert not captured(True, CPU, model) and not captured(False, CUDA, model)
     assert make_eval_step(tiny_cfg(), device="cpu").program is None
     assert make_eval_step(tiny_cfg(), device="cpu", capture=False).program is None
     model.caption.tp_group = object()       # as parallel/tp.py::shard_model sets it
-    assert not captured(True, CUDA, model) and not captured(False, CUDA, model)
+    for backend, want in (("gloo", False), ("nccl", True)):
+        monkeypatch.setattr(step_module, "group_backend", lambda g, backend=backend: backend)
+        assert captured(True, CUDA, model) == want and not captured(False, CUDA, model)
+        assert not captured(True, CPU, model)
 
 
 def test_graph_key_follows_replaced_weights_not_in_place_updates():

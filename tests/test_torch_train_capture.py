@@ -221,18 +221,22 @@ def test_cpu_steps_run_eagerly():
     assert not captured(True, CPU, model)
 
 
-def test_which_steps_capture(on_the_card):
-    """On CUDA, ``capture=False``, a data-parallel group and a TP-cut model
-    run eagerly; a captured step refuses ``marks``."""
+def test_which_steps_capture(on_the_card, monkeypatch):
+    """On CUDA, ``capture=False`` runs eagerly, and so do a data-parallel
+    group and a TP-cut model whose groups are gloo (their collectives run
+    on the host); with NCCL groups (a stubbed backend) they capture. A
+    captured step refuses ``marks``."""
     cfg, tc = tiny(), TrainConfig()
     model = SpaCapNet(cfg)
     opt, _ = make_optimizer(model, tc, steps_per_epoch=1)
-    assert not captured(True, CUDA, model, group=object())
-    assert captured(True, CUDA, model) and not captured(False, CUDA, model)
-    model.caption.tp_group = object()       # as parallel/tp.py::shard_model sets it
-    assert not captured(True, CUDA, model)
-    model.caption.tp_group = None
-    assert on_the_card(cfg, tc, opt, model, group=object()).program is None
+    for backend, want in (("gloo", False), ("nccl", True)):
+        monkeypatch.setattr(step_module, "group_backend", lambda g, backend=backend: backend)
+        assert captured(True, CUDA, model, group=object()) == want
+        assert captured(True, CUDA, model) and not captured(False, CUDA, model)
+        model.caption.tp_group = object()       # as parallel/tp.py::shard_model sets it
+        assert captured(True, CUDA, model) == want
+        model.caption.tp_group = None
+        assert (on_the_card(cfg, tc, opt, model, group=object()).program is None) != want
     assert on_the_card(cfg, tc, opt, model, capture=False).program is None
     step = on_the_card(cfg, tc, opt, model)
     assert step.program is not None
