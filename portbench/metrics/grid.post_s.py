@@ -1,0 +1,13 @@
+"""Seconds of host post-processing (NMS, IoU match, caption decode) a grid
+call's consume threads spend, summed over the threads
+(``timing_out["post_s"]``), the mean over the window's calls."""
+LAYER = "mul_eval grid (eval/mul_eval.py::mul_eval_grid)"
+UNIT = "s"
+MOVES = "eval_scenes_per_s"
+KERNELS = ()
+
+
+def read(record):
+    if record.get("kind") != "grid" or not record["timing"]:
+        return None
+    return sum(t["post_s"] for t in record["timing"]) / len(record["timing"])
