@@ -6,15 +6,21 @@ DataLoader(num_workers=4) (reference scripts/train.py:119): items are built
 by worker threads (numpy releases the GIL in the hot gather and percentile
 ops) and stacked into fixed-shape numpy batches, with the JAX package's
 per-item RNG key schedule, so that the two packages yield equal batches.
+Each item is a ``loader.item`` span on its worker thread and each batch's
+stacking a ``loader.stack`` span (``utils/trace.py``), their request the
+batch's index in the epoch.
 """
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator
 
 import numpy as np
+
+from spacap3d_tpu_torch.utils import trace
 
 
 def stack_batch(items, keys=None) -> Dict[str, np.ndarray]:
@@ -101,12 +107,12 @@ class DataLoader:
                 or getattr(self.dataset, "split", "train") == "train":
             getter = self.dataset.__getitem__
 
-        def build_item(args):
-            i, idx = args
-            rng = np.random.RandomState(
-                (self.seed * 2654435761 + epoch * 97 + int(idx)) % (2 ** 31)
-            )
-            return getter(int(idx), rng=rng)
+        def build_item(b, idx):
+            with trace.span("loader.item", b, index=int(idx)):
+                rng = np.random.RandomState(
+                    (self.seed * 2654435761 + epoch * 97 + int(idx)) % (2 ** 31)
+                )
+                return getter(int(idx), rng=rng)
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -116,8 +122,9 @@ class DataLoader:
                 for b, batch_idx in enumerate(batches):
                     if stop.is_set():
                         break
-                    items = list(pool.map(build_item, enumerate(batch_idx)))
-                    batch = stack_batch(items)
+                    items = list(pool.map(functools.partial(build_item, b), batch_idx))
+                    with trace.span("loader.stack", b):
+                        batch = stack_batch(items)
                     batch["__valid__"] = valid[b]
                     q.put(batch)
             q.put(None)

@@ -46,6 +46,7 @@ from spacap3d_tpu_torch.eval.eval_helper import (
     resolve_winning_proposals,
 )
 from spacap3d_tpu_torch.train.step import EVAL_INPUT_KEYS, to_device_batch
+from spacap3d_tpu_torch.utils import trace
 
 # batches whose outputs wait for the host at most; the main thread stops
 # launching forwards beyond this
@@ -263,6 +264,11 @@ def mul_eval_grid(
     batch's outputs to the host, which waits for its forward), 'post_s'
     (host numpy, NMS, IoU and decode work, without the lock) and
     'lock_s' (waiting for and holding the shared bookkeeping lock).
+    The same clock reads make spans (``utils/trace.py``): a forward's
+    upload and launch are a ``grid.launch`` span on the main thread, and
+    its outputs' consumption a ``grid.consume`` span on a consume thread,
+    whose parts are ``grid.fetch``, ``grid.post`` and ``grid.lock``; their
+    request is the forward's index.
 
     ``point_table``: 'auto' (default) keeps the per-scene clouds on the
     device and ships only the subsample indices a row (falling back to
@@ -326,10 +332,10 @@ def mul_eval_grid(
             _score_seed, (corpus, candidates[seed], meteor_scorer, ap_state, dc.class2type,
                           cider_refs))
 
-    def consume(batch, out):
-        t_start = time.perf_counter()
+    def consume(batch, out, forward):
+        marks = [trace.mark()]
         out = fetch_outputs(out)
-        t_fetched = time.perf_counter()
+        marks.append(trace.mark())
         captions = out["lang_cap"]
         row_valid = batch["__valid__"].astype(bool)
         row_seed = batch["__seed__"]
@@ -344,7 +350,7 @@ def mul_eval_grid(
             final_k = resolve_winning_proposals(keep[b], det_ids[b], organized, scene_id)
             caps = {key: [vocab.decode(captions[b, k])] for key, k in final_k.items()}
             updates.append((int(row_seed[b]), caps, b, int(batch["dataset_idx"][b])))
-        t_post = time.perf_counter()
+        marks.append(trace.mark())
         with lock:
             for seed, caps, b, idx in updates:
                 candidates[seed].update(caps)
@@ -353,11 +359,11 @@ def mul_eval_grid(
                 seed_done_rows[seed] += 1
                 if seed_done_rows[seed] == rows_per_seed:
                     submit_seed(seed)
-            t_end = time.perf_counter()
-            spent["consume_s"] += t_end - t_start
-            spent["fetch_s"] += t_fetched - t_start
-            spent["post_s"] += t_post - t_fetched
-            spent["lock_s"] += t_end - t_post
+            marks.append(trace.mark())
+            for k, (a, b) in zip(("fetch_s", "post_s", "lock_s"), zip(marks, marks[1:])):
+                spent[k] += trace.seconds(a, b)
+            spent["consume_s"] += trace.seconds(marks[0], marks[-1])
+        trace.phases("grid.consume", marks, ["grid.fetch", "grid.post", "grid.lock"], forward)
 
     forwards, load_s, launch_s = 0, 0.0, 0.0
     try:
@@ -366,24 +372,25 @@ def mul_eval_grid(
         with ThreadPoolExecutor(max_workers=4) as pool:
             batches = iter(loader)
             while True:
-                t_wait = time.perf_counter()
+                t_wait = time.perf_counter_ns()
                 batch = next(batches, None)
-                t_got = time.perf_counter()
-                load_s += t_got - t_wait
                 if batch is None:
+                    load_s += (time.perf_counter_ns() - t_wait) * 1e-9
                     break
-                if tables is not None:
-                    dev_batch = to_device_batch(
-                        {"pc_choices": batch["pc_choices"],
-                         "scene_row": row_of_idx[batch["dataset_idx"]]}, dev)
-                    dev_batch["point_table"] = point_tbl
-                    dev_batch["center_table"] = center_tbl
-                else:
-                    dev_batch = to_device_batch({k: batch[k] for k in EVAL_INPUT_KEYS}, dev)
-                out = step(model, dev_batch)
-                launch_s += time.perf_counter() - t_got
+                with trace.timed("grid.launch", forwards) as launch:
+                    if tables is not None:
+                        dev_batch = to_device_batch(
+                            {"pc_choices": batch["pc_choices"],
+                             "scene_row": row_of_idx[batch["dataset_idx"]]}, dev)
+                        dev_batch["point_table"] = point_tbl
+                        dev_batch["center_table"] = center_tbl
+                    else:
+                        dev_batch = to_device_batch({k: batch[k] for k in EVAL_INPUT_KEYS}, dev)
+                    out = step(model, dev_batch)
+                load_s += (launch.start_ns - t_wait) * 1e-9
+                launch_s += launch.seconds
+                futures.append(pool.submit(consume, batch, out, forwards))
                 forwards += 1
-                futures.append(pool.submit(consume, batch, out))
                 pending = [f for f in pending + futures[-1:] if not f.done()]
                 while len(pending) > MAX_IN_FLIGHT:
                     pending.pop(0).result()

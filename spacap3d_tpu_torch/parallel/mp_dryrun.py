@@ -31,7 +31,8 @@ process group (``multihost.initialize_from_env``) and runs its legs:
   generators, in turns: CAPTURED_STEPS train steps of each, then the
   eval forwards of the tp leg, unfused and fused. Per rank: each call's ms
   and what the program did (``captured``, the graph indices ``replayed``,
-  the rank agreement's ms), the tensors where the captured run differs from
+  the rank agreement's ms, from its ``capture.agree`` span: the tracer is
+  on over these legs), the tensors where the captured run differs from
   the eager one (metrics, dropout masks, outputs, then parameters, Adam
   state, BN buffers, generator states; with their largest differences),
   the launches of a profiled replay and of a profiled eager call from
@@ -56,6 +57,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -85,6 +87,7 @@ from spacap3d_tpu_torch.train.step import (
     make_train_step,
     to_device_batch,
 )
+from spacap3d_tpu_torch.utils import trace
 
 # the tiny smoke config of the JAX worker (fast on the CPU)
 TINY = dict(num_points=1024, num_proposals=16, num_layers=2, num_heads=4, d_model=32,
@@ -312,6 +315,19 @@ def peak_reserved_gib(dev: torch.device) -> Optional[float]:
     return torch.cuda.max_memory_reserved(dev) / 2 ** 30 if dev.type == "cuda" else None
 
 
+def traced(method):
+    """``method`` with the tracer (``utils/trace.py``) on, whose
+    ``capture.agree`` spans ``Worker.program_call`` reads."""
+    @functools.wraps(method)
+    def run(*args, **kwargs):
+        trace.enable()
+        try:
+            return method(*args, **kwargs)
+        finally:
+            trace.disable()
+    return run
+
+
 class Worker:
     def __init__(self, args, rank: int, world: int):
         self.args, self.rank, self.world = args, rank, world
@@ -385,14 +401,16 @@ class Worker:
     def program_call(step) -> Optional[Dict]:
         """What the last call of ``step`` did: None where it ran eagerly,
         else whether it captured, the graphs it replayed and the rank
-        agreement's ms."""
+        agreement's ms (its ``capture.agree`` span, among the records since
+        the last drain: the tracer is on over the captured legs)."""
+        agree = [r for r in trace.drain() if r["name"] == "capture.agree"]
         program = step.program
         if program is None:
             return None
         last = program.last
-        agree = last.get("agree_s")
         return {"captured": last["captured"], "replayed": last["replayed"],
-                "agree_ms": None if agree is None else agree * 1e3}
+                "agree_ms": (agree[-1]["end_ns"] - agree[-1]["start_ns"]) * 1e-6
+                if agree else None}
 
     def whole_digest(self, model) -> str:
         """The digest of ``model``'s parameters, gathered whole under TP (a
@@ -402,6 +420,7 @@ class Worker:
             params = tp_mod.gather_state_dict(params, model.tp_mesh, model.tp_specs)
         return digest(params)
 
+    @traced
     def captured_train_turns(self, start, batch, group, data_rank, prepare=None) -> Dict:
         """CAPTURED_STEPS train steps of the eager and of the captured
         step (``make_train_step(capture=...)``), each on a model from the
@@ -484,6 +503,7 @@ class Worker:
             "peak_reserved_gib": peak_reserved_gib(self.dev),
         }
 
+    @traced
     def captured_eval_turns(self, paths, batch, want, turns: int = 2) -> Dict:
         """The eval forward of each path (name -> model) through the eager
         and the captured step, in turns (unfused, fused, fused, unfused,

@@ -12,7 +12,9 @@ step, which that first step captures), as the solver runs them. Kernels are summ
 name without template arguments, parameters and trailing digits. Device busy is the union of the
 kernel and copy spans, so families that overlap can sum past it. On the CPU
 the trace has no device spans, and the script prints the host's op times
-by name instead, labelled as such.
+by name instead, labelled as such. The port's tracer (``utils/trace.py``)
+is on over the profiled steps: a table of its spans follows, with the
+device's idle time inside each on CUDA.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import os
 import re
 import tempfile
 from collections import defaultdict
+
+from spacap3d_tpu_torch.utils import trace
 
 
 def tiny_config():
@@ -71,11 +75,15 @@ def capture(mode: str, smoke: bool, n_steps: int, device: str):
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        for _ in range(n_steps):
-            run()
-        synchronize(dev)
-    return prof
+    trace.enable()
+    try:
+        with profile(activities=activities) as prof:
+            for _ in range(n_steps):
+                run()
+            synchronize(dev)
+    finally:
+        records = trace.disable()
+    return prof, records
 
 
 def family(name: str) -> str:
@@ -94,13 +102,18 @@ def family(name: str) -> str:
     return re.sub(r"[\d_]+$", "", "::".join(head[-1].split("::")[-2:]))
 
 
-def summarize(prof, n_steps: int, top: int = 25):
+def device_spans(events):
+    """(start, end, name) of the profile's kernel, copy and set spans, in
+    microseconds, by start."""
     from torch.autograd import DeviceType
 
-    events = prof.events()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+
+
+def summarize(prof, n_steps: int, top: int = 25):
+    spans = device_spans(prof.events())
     if not spans:
         print("no device spans in the trace (a CPU run); host op self time by name, "
               "us per step:")
@@ -128,6 +141,31 @@ def summarize(prof, n_steps: int, top: int = 25):
     return {k: v / n_steps for k, v in fam.items()}
 
 
+def span_table(records, events, n_steps: int):
+    """The tracer's spans over the profiled steps (``utils/trace.py``): each
+    name's count, wall ms a step, CPU share (the thread's CPU time over the
+    wall time: below 100% where it waited for the interpreter lock, a core
+    or the device) and, where the profile has device spans, the device's
+    idle ms a step inside them (the records put on the profile's clock)."""
+    gaps, end = [], None
+    for s, e, _ in device_spans(events):
+        if end is not None and s > end:
+            gaps.append((end, s))
+        end = e if end is None else max(end, e)
+    idle = defaultdict(float)
+    for r in trace.on_profile_clock(records, events) if gaps else []:
+        idle[r["name"]] += sum(max(0.0, min(e, r["end_us"]) - max(s, r["start_us"]))
+                               for s, e in gaps)
+    print(f"\n{'span':24s} {'count':>6s} {'wall ms/step':>13s} {'cpu %':>7s}"
+          + (f" {'device idle ms/step':>20s}" if gaps else ""))
+    table = trace.summary(records)
+    for name, t in sorted(table.items(), key=lambda kv: -kv[1]["wall_s"]):
+        share = 100 * t["cpu_s"] / t["wall_s"] if t["wall_s"] else 0.0
+        print(f"{name:24s} {t['count']:6d} {t['wall_s'] * 1e3 / n_steps:13.3f} {share:7.1f}"
+              + (f" {idle[name] * 1e-3 / n_steps:20.3f}" if gaps else ""))
+    return table
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--mode", choices=["train", "eval"], default="train")
@@ -139,12 +177,14 @@ def main(argv=None):
                    help="torch device; 'cpu' runs the kernels' plain versions")
     args = p.parse_args(argv)
     outdir = args.out or tempfile.mkdtemp(prefix="spacap_torch_profile_")
-    prof = capture(args.mode, args.smoke, args.steps, args.device)
+    prof, records = capture(args.mode, args.smoke, args.steps, args.device)
     os.makedirs(outdir, exist_ok=True)
     path = os.path.join(outdir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"trace: {path}")
-    return summarize(prof, args.steps, args.top)
+    families = summarize(prof, args.steps, args.top)
+    span_table(records, prof.events(), args.steps)
+    return families
 
 
 if __name__ == "__main__":

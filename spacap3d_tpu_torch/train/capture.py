@@ -58,6 +58,15 @@ warm-up counts each launch, and so does the capture, which records it
 into a graph. A replay runs no Python and counts nothing; its kernels are
 seen on the device (a profile of the replay holds one span for each).
 
+Each call is a ``capture.call`` span (``utils/trace.py``; attributes
+``program``, the ``name`` given, and ``captured``) around ``capture.key``
+(the key's walk over the parameters, buffers and optimizer state),
+``capture.agree`` (with groups), then either ``capture.capture`` (the
+warm-up and the capture; ``code_fields``: the fields in which the key
+differs from the last live one) or ``capture.load`` (the batch into the
+static inputs), a ``capture.replay`` a graph (``k``, its index) and
+``capture.outputs`` (the outputs' copies).
+
 Graphs capture with ``capture_error_mode="thread_local"``: the eval
 harness copies earlier forwards' outputs to the host on pool threads
 (``eval/mul_eval.py``) while the main thread may capture a new key, and
@@ -77,6 +86,7 @@ import torch
 import torch.distributed as dist
 
 from spacap3d_tpu_torch.parallel import multihost
+from spacap3d_tpu_torch.utils import trace
 from spacap3d_tpu_torch.utils.segments import Segments, run_eager
 
 # keys whose graphs a CapturedFunction keeps at once; each holds its
@@ -279,15 +289,18 @@ class CapturedFunction:
 
     ``last`` describes the last call: ``captured`` (a new key's warm-up
     and capture) or not, the indices of the graphs it replayed
-    (``replayed``), the capture's seconds, the live keys and, with groups,
-    the agreement's seconds (``agree_s``). ``entries`` holds each key's
-    ``Entry``, the most recently used last."""
+    (``replayed``) and the seconds of its key's capture, after the warm-up
+    (``capture_s``). ``entries`` holds each key's ``Entry``, the most
+    recently used last. ``name`` ("train", "eval") names the program in
+    its spans (module docstring)."""
 
     def __init__(self, segments_of: Callable[[torch.nn.Module], Segments],
                  by_address: Sequence[str] = (), backend=CudaGraphs,
                  state_of: Optional[Callable[[], Tuple]] = None,
-                 groups_of: Optional[Callable[[torch.nn.Module], Sequence]] = None):
+                 groups_of: Optional[Callable[[torch.nn.Module], Sequence]] = None,
+                 name: str = ""):
         self.segments_of = segments_of
+        self.name = name
         self.by_address = tuple(by_address)
         self.backend = backend
         self.state_of = state_of
@@ -304,25 +317,27 @@ class CapturedFunction:
 
     def __call__(self, model: torch.nn.Module, inputs: Dict[str, torch.Tensor],
                  generator=None) -> Dict[str, torch.Tensor]:
-        groups = list(self.groups_of(model)) if self.groups_of is not None else []
-        key = self.key(model, inputs, generator, groups)
-        entry = self.entries.get(key)
-        agree_s = None
-        if groups:
-            t0 = time.perf_counter()
-            capture = self.agree(key, entry is None, groups)
-            agree_s = time.perf_counter() - t0
-            if capture and entry is not None:
-                del self.entries[key]       # peers capture: this rank recaptures its key
-                entry = None
-        if entry is None:
-            out = self._capture(key, model, inputs, generator)
-        else:
+        with trace.span("capture.call", program=self.name) as call:
+            groups = list(self.groups_of(model)) if self.groups_of is not None else []
+            with trace.span("capture.key"):
+                key = self.key(model, inputs, generator, groups)
+            entry = self.entries.get(key)
+            if groups:
+                with trace.span("capture.agree"):
+                    capture = self.agree(key, entry is None, groups)
+                if capture and entry is not None:
+                    del self.entries[key]       # peers capture: this rank recaptures its key
+                    entry = None
+            if call:
+                call.set(captured=entry is None)
+            if entry is None:
+                with trace.span("capture.capture") as span:
+                    if span:
+                        last = next(reversed(self.entries)) if self.entries else None
+                        span.set(code_fields=code_fields(new_key_code(key, last)))
+                    return self._capture(key, model, inputs, generator)
             self.entries.move_to_end(key)
-            out = self._replay(entry, inputs, generator)
-        if agree_s is not None:
-            self.last["agree_s"] = agree_s
-        return out
+            return self._replay(entry, inputs, generator)
 
     def agree(self, key: Key, new: bool, groups: Sequence) -> bool:
         """Whether every rank captures (True) or replays (False) in this
@@ -390,19 +405,20 @@ class CapturedFunction:
         key = key._replace(weights=self.key(model, inputs, generator).weights)
         self.entries[key] = Entry(static, carry, segments.skip, graphs, statics,
                                   time.perf_counter() - t0, own)
-        self.last = {"captured": True, "replayed": [], "capture_s": self.entries[key].capture_s,
-                     "live": len(self.entries)}
+        self.last = {"captured": True, "replayed": [], "capture_s": self.entries[key].capture_s}
         return out
 
     def _replay(self, entry: Entry, inputs, generator):
-        entry.inputs.load(inputs)
+        with trace.span("capture.load"):
+            entry.inputs.load(inputs)
         pairs = list(zip(generators_of(entry.generators), generators_of(generator)))
         for own, theirs in pairs:
             own.set_state(theirs.get_state())
         try:
             last, k, ran = len(entry.graphs) - 1, 0, []
             while True:
-                entry.graphs[k].replay()
+                with trace.span("capture.replay", k=k):
+                    entry.graphs[k].replay()
                 ran.append(k)
                 if k == last:
                     break
@@ -412,11 +428,11 @@ class CapturedFunction:
                     k = last
                 else:
                     k += 1
-            out = {name: t.clone() for name, t in entry.statics[-1].items()}
+            with trace.span("capture.outputs"):
+                out = {name: t.clone() for name, t in entry.statics[-1].items()}
             for own, theirs in pairs:
                 theirs.set_state(own.get_state())
         finally:
             entry.inputs.release()
-        self.last = {"captured": False, "replayed": ran, "capture_s": entry.capture_s,
-                     "live": len(self.entries)}
+        self.last = {"captured": False, "replayed": ran, "capture_s": entry.capture_s}
         return out

@@ -7,7 +7,9 @@ for one process on one device:
   * fetch and step times are kept (reference :464-505), with an ETA; the
     step time is taken on sampled iterations only, every
     ``min(verbose, 50)``, behind a device synchronisation, so that the other
-    iterations queue their work without waiting for it;
+    iterations queue their work without waiting for it. Each fetch and
+    step is a ``solver.fetch`` / ``solver.step`` span (``utils/trace.py``,
+    its request the global iteration) whose clock reads are these times;
   * validation every ``val_step`` iterations runs ``eval_cap`` on the val
     loader and keeps the best checkpoint (``model.ckpt``) by ``criterion``
     (default CIDEr, :556-580); ``model_last.ckpt`` is written every
@@ -75,6 +77,7 @@ from spacap3d_tpu_torch.train.step import (
 )
 from spacap3d_tpu_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint
 from spacap3d_tpu_torch.utils.convert import payload_from_jax
+from spacap3d_tpu_torch.utils import trace
 from spacap3d_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, load_jax_checkpoint
 from spacap3d_tpu_torch.utils.logging import RunLogger, decode_eta
 
@@ -296,23 +299,27 @@ class Solver:
         epoch_fetch, epoch_step = [], []
         epoch_t0 = time.time()
         n_iters = 0
-        fetch_t0 = time.time()
-        for batch in self.train_loader:
-            fetch_time = time.time() - fetch_t0
+        batches = iter(self.train_loader)
+        while True:
+            with trace.timed("solver.fetch", self.global_iter) as fetch:
+                batch = next(batches, None)
+            if batch is None:
+                break
+            fetch_time = fetch.seconds
             gen = self.dropout_generator(self.global_iter)
             sampled = self.global_iter % sample_every == 0
             if sampled:
                 synchronize(self.device)
-            t0 = time.time()
-            metrics = self.train_step(self.model, batch, gen, momentum)
+            with trace.timed("solver.step", self.global_iter) as step:
+                metrics = self.train_step(self.model, batch, gen, momentum)
+                if sampled:
+                    synchronize(self.device)
             if sampled:
-                synchronize(self.device)
-                step_time = time.time() - t0
-                epoch_step.append(step_time)
-                self.timing["step"].append(step_time)
+                epoch_step.append(step.seconds)
+                self.timing["step"].append(step.seconds)
             if (self.global_iter + 1) % verbose == 0 or self.global_iter == 0:
                 metrics = {k: v.item() for k, v in metrics.items()}
-                step_time = time.time() - t0
+                step_time = (time.perf_counter_ns() - step.start_ns) * 1e-9
                 self._report(epoch, metrics, fetch_time, step_time, total_iters, t_start)
                 for k, v in metrics.items():
                     self.logger.scalar("train", k, v, self.global_iter)
@@ -323,7 +330,6 @@ class Solver:
             n_iters += 1
             if self.tc.val_step and self.global_iter % self.tc.val_step == 0:
                 self._validate(epoch)
-            fetch_t0 = time.time()
         epoch_wall = time.time() - epoch_t0
         if n_iters:
             mean_fetch = float(np.mean(epoch_fetch)) * 1000

@@ -40,6 +40,7 @@ from spacap3d_tpu_torch.parallel.tp import average_replicated_gradients
 from spacap3d_tpu_torch.ops.nn_distance import nn_distance
 from spacap3d_tpu_torch.train.capture import CapturedFunction, optimizer_state
 from spacap3d_tpu_torch.train.losses import NEAR_THRESHOLD, get_scene_cap_loss
+from spacap3d_tpu_torch.utils import trace
 from spacap3d_tpu_torch.utils.segments import Segments, run_eager
 
 # metrics a train step returns (the reference Solver's log keys)
@@ -76,13 +77,21 @@ FULL_KEYS = (
 
 
 def to_device_batch(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    """numpy arrays or tensors -> tensors on ``device``; floats as f32."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.as_tensor(v)
-        if t.is_floating_point():
-            t = t.to(torch.float32)
-        out[k] = t.to(device)
+    """numpy arrays or tensors -> tensors on ``device``; floats as f32. An
+    ``upload`` span (``utils/trace.py``): the ``bytes`` copied from other
+    devices and whether all of them were ``pinned``."""
+    out, moved = {}, []
+    with trace.span("upload") as span:
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if t.is_floating_point():
+                t = t.to(torch.float32)
+            out[k] = t.to(device)
+            if span and out[k].device != t.device:
+                moved.append(t)
+        if span:
+            span.set(bytes=sum(t.nbytes for t in moved),
+                     pinned=bool(moved) and all(t.is_pinned() for t in moved))
     return out
 
 
@@ -222,7 +231,7 @@ def make_eval_step(cfg: ModelConfig, device="cuda", compact: bool = False,
     dev = resolve_device(device)
     segments_of = eval_segments(cfg, compact)
     program = (CapturedFunction(segments_of, by_address=("point_table", "center_table"),
-                                groups_of=step_groups)
+                                groups_of=step_groups, name="eval")
                if captured(capture, dev) else None)
 
     @torch.no_grad()
@@ -445,7 +454,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: torch.optim.Op
     momentum = torch.zeros((), device=dev)
     segments_of = train_segments(cfg, tc, optimizer, momentum, group)
     program = (CapturedFunction(segments_of, state_of=lambda: optimizer_state(optimizer),
-                                groups_of=functools.partial(step_groups, group=group))
+                                groups_of=functools.partial(step_groups, group=group),
+                                name="train")
                if captured(capture, dev, group=group) else None)
 
     def step(model, batch, gen: Optional[torch.Generator] = None,

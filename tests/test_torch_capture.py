@@ -7,6 +7,7 @@ reruns the captured part (``Rerun``). The staged greedy decode
 the JAX package's eval step: f32 tokens equal, with the early exit on and
 off, its stage ends equal to the JAX package's ``bounds``."""
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,7 @@ from spacap3d_tpu_torch.ops.fps import furthest_point_sample
 from spacap3d_tpu_torch.train import capture
 from spacap3d_tpu_torch.train import step as step_module
 from spacap3d_tpu_torch.train.step import captured, eval_segments, make_eval_step, to_device_batch
+from spacap3d_tpu_torch.utils import trace
 from spacap3d_tpu_torch.utils.segments import Segments, run_eager
 from test_torch_eval_step import assert_outputs_match, run_both
 from test_torch_eval_step import setup as eval_setup  # noqa: F401 (a fixture)
@@ -200,6 +202,51 @@ def test_replays_count_launches_and_return_owned_outputs():
     out, got = call(50)                        # the test is true: skip, then the last part
     assert torch.equal(out["y"], torch.full((3,), -1.0)) and got == (0,) * 5
     assert fn.last["replayed"] == [0, 1] and len(fn.entries) == 1
+
+
+def test_spans_follow_captures_and_replays(monkeypatch):
+    """With the tracer off a call reads neither of the tracer's clocks and
+    keeps nothing; on, ``capture.capture`` and the ``capture.call`` spans'
+    ``captured`` follow ``last``'s flags over a capture and two replays
+    (the second takes the early exit), with a ``capture.replay`` span for
+    each graph ``last`` says it replayed."""
+    fn = capture.CapturedFunction(counting_segments, backend=Rerun, name="eval")
+    model = torch.nn.Linear(2, 2)
+
+    def boom():
+        raise AssertionError("a span site read a clock with the tracer off")
+
+    with monkeypatch.context() as m:
+        m.setattr(time, "perf_counter_ns", boom)
+        m.setattr(time, "thread_time_ns", boom)
+        fn(model, {"x": torch.ones(3)})
+        fn(model, {"x": torch.ones(3)})
+    assert trace.drain() == []
+    fn.clear()
+    trace.enable()
+    lasts = []
+    try:
+        for x in (1.0, 2.0, 60.0):
+            fn(model, {"x": torch.full((3,), x)})
+            lasts.append(dict(fn.last))
+    finally:
+        records = trace.disable()
+    calls = [r for r in records if r["name"] == "capture.call"]
+    assert [r["attrs"] for r in calls] == [{"program": "eval", "captured": last["captured"]}
+                                           for last in lasts]
+    assert [r["attrs"]["captured"] for r in calls] == [True, False, False]
+    children = {c["id"]: [r["name"] for r in records if r["parent"] == c["id"]] for c in calls}
+    first, *replays = calls
+    assert children[first["id"]] == ["capture.key", "capture.capture"]
+    cap = next(r for r in records if r["name"] == "capture.capture")
+    assert cap["attrs"] == {"code_fields": ["first call"]}
+    for call, last in zip(replays, lasts[1:]):
+        assert children[call["id"]] == (["capture.key", "capture.load"]
+                                        + ["capture.replay"] * len(last["replayed"])
+                                        + ["capture.outputs"])
+        assert [r["attrs"]["k"] for r in records if r["name"] == "capture.replay"
+                and r["parent"] == call["id"]] == last["replayed"]
+    assert set(lasts[0]) == {"captured", "replayed", "capture_s"}
 
 
 def test_new_weights_and_tables_drop_old_graphs():

@@ -42,6 +42,7 @@ from spacap3d_tpu_torch.eval.eval_helper import eval_cap, organize_annotations, 
 from spacap3d_tpu_torch.eval.mul_eval import mul_eval_grid
 from spacap3d_tpu_torch.models import SpaCapNet
 from spacap3d_tpu_torch.train.step import make_eval_step
+from spacap3d_tpu_torch.utils import trace
 from spacap3d_tpu_torch.utils.convert import params_from_jax
 
 # tests/test_mul_eval_grid.py's config, f32 decode
@@ -149,6 +150,40 @@ def test_grid_rows_equal_table_off_and_serial(both, grid_rows, variant, monkeypa
         assert timing["fetch_s"] + timing["post_s"] + timing["lock_s"] == \
             pytest.approx(timing["consume_s"], rel=1e-6)
     assert got == want
+
+
+def test_grid_spans_are_its_timing(both, grid_rows):
+    """The grid's spans are the clock reads of ``timing_out``: the sums of
+    ``grid.fetch``, ``grid.post``, ``grid.lock`` and ``grid.consume`` are
+    its ``fetch_s``, ``post_s``, ``lock_s`` and ``consume_s``, those of
+    ``grid.launch`` its ``launch_s``. A forward's consume spans are its
+    parts' parents, on a consume thread, and share its index with its
+    launch, whose upload is its child; the rows do not change."""
+    trace.enable()
+    try:
+        rows, timing = port_grid(both)
+    finally:
+        records = trace.disable()
+    assert rows == grid_rows[0]
+    sums = trace.summary(records)
+    for name, key in (("grid.fetch", "fetch_s"), ("grid.post", "post_s"),
+                      ("grid.lock", "lock_s"), ("grid.consume", "consume_s"),
+                      ("grid.launch", "launch_s")):
+        assert sums[name]["wall_s"] == pytest.approx(timing[key], rel=1e-9, abs=1e-12), name
+        assert sums[name]["count"] == timing["forwards"] == 2
+    by_id = {r["id"]: r for r in records}
+    launches = {r["request"]: r for r in records if r["name"] == "grid.launch"}
+    consumes = {r["request"]: r for r in records if r["name"] == "grid.consume"}
+    assert sorted(launches) == sorted(consumes) == [0, 1]
+    for r in records:
+        if r["name"] in ("grid.fetch", "grid.post", "grid.lock"):
+            assert by_id[r["parent"]]["name"] == "grid.consume"
+            assert r["request"] == by_id[r["parent"]]["request"]
+        if r["name"] == "upload" and r["parent"]:
+            assert by_id[r["parent"]]["name"] == "grid.launch"
+    main = threading.get_ident()
+    assert all(c["thread"] != main for c in consumes.values())
+    assert all(launch["thread"] == main for launch in launches.values())
 
 
 def test_grid_rows_hold_under_thread_switching(both, grid_rows):

@@ -14,6 +14,7 @@ import dataclasses
 import json
 import os
 import threading
+import time
 import types
 
 import jax
@@ -45,6 +46,7 @@ from spacap3d_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint_sync,
 )
+from spacap3d_tpu_torch.utils import trace
 from spacap3d_tpu_torch.utils.convert import params_from_jax
 from test_torch_mul_eval import MODEL
 
@@ -333,6 +335,30 @@ def test_load_or_build_vocabulary(split, tmp_path):
     assert built.word2idx == Vocabulary.build(train_anns).word2idx
     again = load_or_build_vocabulary(path, train_anns[:1])
     assert again.word2idx == built.word2idx
+
+
+def test_fetch_and_step_spans_are_the_solvers_timing(split, tmp_path):
+    """The ``solver.fetch`` and ``solver.step`` spans are the clock reads
+    of ``Solver.timing``'s fetch times and sampled step times (every second
+    step at verbose 2), their request the global iteration; the step's
+    upload is its child. The last fetch finds the epoch's end."""
+    solver = port_solver(split, str(tmp_path), val_step=0)
+    trace.enable()
+    try:
+        solver._feed_epoch(0, 0.1, 2, len(solver.train_loader), time.time())
+    finally:
+        records = trace.disable()
+    steps = len(solver.train_loader)
+    fetch = [r for r in records if r["name"] == "solver.fetch"]
+    step = [r for r in records if r["name"] == "solver.step"]
+    assert [r["request"] for r in fetch] == list(range(steps + 1))
+    assert [r["request"] for r in step] == list(range(steps))
+    seconds = [(r["end_ns"] - r["start_ns"]) * 1e-9 for r in fetch + step]
+    assert seconds[:steps] == solver.timing["fetch"]
+    assert seconds[steps + 1::2] == solver.timing["step"] and len(solver.timing["step"]) == 3
+    uploads = [r for r in records if r["name"] == "upload"]
+    assert [(r["parent"], r["request"]) for r in uploads] == [(r["id"], r["request"])
+                                                              for r in step]
 
 
 def test_profile_and_interrupt(split, tmp_path):
