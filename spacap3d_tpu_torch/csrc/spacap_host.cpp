@@ -48,6 +48,29 @@ void gather_i64(const int64_t* src, const int64_t* idx, int64_t* dst,
   for (int64_t i = 0; i < n_out; ++i) dst[i] = src[idx[i]];
 }
 
+// dst[i * dst_stride + j] = (float)src[idx[i] * src_stride + j], j < n_cols:
+// the chosen rows of a column range, cast to float32, written into strided
+// rows (the columns of a batch row); strides count elements. Only the
+// chosen rows are read, and nothing is staged.
+void gather_cols_f32_f32(const float* src, int64_t src_stride,
+                         const int64_t* idx, float* dst, int64_t dst_stride,
+                         int64_t n_out, int64_t n_cols) {
+  for (int64_t i = 0; i < n_out; ++i) {
+    std::memcpy(dst + i * dst_stride, src + idx[i] * src_stride,
+                sizeof(float) * n_cols);
+  }
+}
+
+void gather_cols_f64_f32(const double* src, int64_t src_stride,
+                         const int64_t* idx, float* dst, int64_t dst_stride,
+                         int64_t n_out, int64_t n_cols) {
+  for (int64_t i = 0; i < n_out; ++i) {
+    const double* s = src + idx[i] * src_stride;
+    float* d = dst + i * dst_stride;
+    for (int64_t j = 0; j < n_cols; ++j) d[j] = (float)s[j];
+  }
+}
+
 // numpy-compatible linear-interpolation percentile of values[0..n)
 double percentile(const double* values, int64_t n, double q) {
   std::vector<double> v(values, values + n);

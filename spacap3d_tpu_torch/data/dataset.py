@@ -14,6 +14,10 @@ package's changes to the reference:
 The subsample, the row gathers, the floor percentile and the votes run
 in the port's host library (``data/native.py``), as the JAX package runs
 them in its own: items are equal to the JAX package's bit for bit.
+``__getitem__`` draws the subsample first and builds each channel at the
+sampled rows alone, in float32 (xyz in float64 through augmentation),
+into rows it may be given (the loader's batch): it assembles no
+full-scene cloud, which the eval paths' per-index cache still does.
 
 Expected on-disk scene format is the reference preprocessing output
 (``<scene>_aligned_vert.npy``, ``_ins_label``, ``_sem_label``,
@@ -23,11 +27,11 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from spacap3d_tpu_torch.config import MAX_NUM_OBJ, MEAN_COLOR_RGB, DataConfig
+from spacap3d_tpu_torch.config import GT_VOTE_FACTOR, MAX_NUM_OBJ, MEAN_COLOR_RGB, DataConfig
 from spacap3d_tpu_torch.data import native
 from spacap3d_tpu_torch.data.scannet_config import ScannetDatasetConfig
 from spacap3d_tpu_torch.data.vocabulary import Vocabulary
@@ -169,6 +173,7 @@ class ScanReferDataset:
             os.environ.get("SPACAP_EVAL_CACHE_BYTES", 8 << 30)
         )
         self._cache_lock = threading.Lock()
+        self._floors: Dict[str, float] = {}   # scene id -> floor height (_floor)
 
     def __len__(self):
         return len(self.annotations)
@@ -268,17 +273,74 @@ class ScanReferDataset:
             full_pc = cache[0]
         return full_pc.astype(np.float32)
 
-    def __getitem__(self, idx: int, rng: Optional[np.random.RandomState] = None):
+    def in_place_leaves(self) -> Dict[str, Tuple[int, ...]]:
+        """The shapes of the float32 leaves that ``__getitem__`` writes into
+        rows it is given (``out``)."""
+        n = self.cfg.num_points
+        return {"point_clouds": (n, 3 + self.cfg.input_feature_dim),
+                "vote_label": (n, 3 * GT_VOTE_FACTOR)}
+
+    def _floor(self, sid: str, scene: Scene) -> float:
+        """The scene's floor height: the 0.99th percentile of its z (the
+        height channel of ``_assemble_full_cloud``), kept a scene."""
+        floor = self._floors.get(sid)
+        if floor is None:
+            floor = self._floors[sid] = native.percentile_z(scene.mesh_vertices[:, 2], 0.99)
+        return floor
+
+    def _sampled_cloud(self, sid: str, scene: Scene, choices: np.ndarray,
+                       out: np.ndarray) -> np.ndarray:
+        """``_assemble_full_cloud(scene)[choices]`` cast to float32, built
+        at the chosen rows alone: writes every channel but xyz into ``out``
+        and returns xyz (float64), which augmentation moves before it goes
+        into columns 0-2. Each channel takes the dtype the full cloud gives
+        it (colour is computed in float64, the height in the concatenated
+        dtype) and is cast once, so ``out`` is bit-equal to the full
+        cloud's rows cast to float32."""
+        cfg = self.cfg
+        mesh = scene.mesh_vertices
+        xyz = np.asarray(mesh[choices, 0:3], np.float64)
+        dtypes, col = [mesh.dtype], 3
+        if cfg.use_color:
+            rgb = (mesh[choices, 3:6] - np.asarray(MEAN_COLOR_RGB)) / 256.0
+            out[:, col:col + 3] = rgb
+            dtypes.append(rgb.dtype)
+            col += 3
+        if cfg.use_normal:
+            native.gather_rows_into(mesh[:, 6:9], choices, out[:, col:col + 3])
+            col += 3
+        if cfg.use_multiview:
+            mv = scene.multiview
+            native.gather_rows_into(mv, choices, out[:, col:col + mv.shape[1]])
+            dtypes.append(mv.dtype)
+            col += mv.shape[1]
+        if cfg.use_height:
+            z = np.asarray(mesh[choices, 2], np.result_type(*dtypes))
+            out[:, col] = z - self._floor(sid, scene)
+            col += 1
+        if col != out.shape[1]:
+            raise ValueError(f"a point of scene {sid} has {col} channels, not {out.shape[1]}")
+        return xyz
+
+    def __getitem__(self, idx: int, rng: Optional[np.random.RandomState] = None,
+                    out: Optional[Dict[str, np.ndarray]] = None):
+        """One item. ``out`` maps leaves of ``in_place_leaves`` to float32
+        rows of their shape (a batch's, in the loader): the item writes
+        those leaves there and returns the rows as its leaves. The point
+        block is gathered once, at the sampled rows, straight into its
+        float32 row."""
         if rng is None:
             rng = np.random.RandomState()
         ann = self.annotations[idx]
-        scene = self.scenes[ann["scene_id"]]
+        sid = ann["scene_id"]
+        scene = self.scenes[sid]
         object_id = int(ann["object_id"])
         cfg, dc = self.cfg, self.dc
+        rows = {k: _row(out, k, shape) for k, shape in self.in_place_leaves().items()}
 
-        point_cloud = self._assemble_full_cloud(scene)
-        choices = random_sampling(point_cloud.shape[0], cfg.num_points, rng)
-        point_cloud = native.gather_rows(point_cloud, choices)
+        choices = random_sampling(len(scene.mesh_vertices), cfg.num_points, rng)
+        point_cloud = rows["point_clouds"]
+        xyz = self._sampled_cloud(sid, scene, choices, point_cloud)
         if self.split == "train":
             # only the (train-only) vote computation consumes these
             instance_labels = native.gather_rows(
@@ -300,26 +362,28 @@ class ScanReferDataset:
         # ----- augmentation (train only; reference :364-401) -------------
         if cfg.augment:
             if rng.random_sample() > 0.5:   # YZ-plane flip (x -> -x)
-                point_cloud[:, 0] *= -1
+                xyz[:, 0] *= -1
                 target_bboxes[:, 0] *= -1
                 if relations is not None:
                     relations["x"] = _swap02(relations["x"])
             if rng.random_sample() > 0.5:   # XZ-plane flip (y -> -y)
-                point_cloud[:, 1] *= -1
+                xyz[:, 1] *= -1
                 target_bboxes[:, 1] *= -1
                 if relations is not None:
                     relations["y"] = _swap02(relations["y"])
             for axis in (0, 1, 2):          # +-5 degrees about each axis
                 angle = (rng.random_sample() * np.pi / 18) - np.pi / 36
                 rot = rot_matrix(axis, angle)
-                point_cloud[:, 0:3] = point_cloud[:, 0:3] @ rot.T
+                xyz = xyz @ rot.T
                 target_bboxes = rotate_aligned_boxes_along_axis(
                     target_bboxes, rot, axis
                 )
             # +-0.5 m translation (reference :229-244)
             factor = rng.choice(np.arange(-0.5, 0.501, 0.001), size=3)
-            point_cloud[:, 0:3] += factor
+            xyz += factor
             target_bboxes[:, 0:3] += factor
+
+        point_cloud[:, 0:3] = xyz
 
         # ----- relation GT padded to MAX_NUM_OBJ --------------------------
         out_rel = {}
@@ -337,10 +401,11 @@ class ScanReferDataset:
         # stays bit-identical to a votes-on build.
         if self.split == "train":
             point_votes, point_votes_mask = native.compute_votes_native(
-                point_cloud[:, :3], instance_labels, semantic_labels, dc.nyu40ids)
+                xyz, instance_labels, semantic_labels, dc.nyu40ids)
         else:
             point_votes = np.zeros((len(point_cloud), 9))
             point_votes_mask = np.zeros(len(point_cloud))
+        rows["vote_label"][...] = point_votes
 
         # ----- class / size labels ----------------------------------------
         size_classes = np.zeros(MAX_NUM_OBJ)
@@ -396,7 +461,7 @@ class ScanReferDataset:
         object_cat = dc.raw2label.get(object_name, 17)
 
         item = {
-            "point_clouds": point_cloud.astype(np.float32),
+            "point_clouds": point_cloud,
             "lang_ids": lang_ids.astype(np.int64),
             "lang_label": lang_label,
             "lang_len": np.int64(lang_len),
@@ -410,7 +475,7 @@ class ScanReferDataset:
             "scene_object_ids": gt_object_ids,
             "box_label_mask": target_bboxes_mask.astype(np.float32),
             "box_label_mask_int": target_bboxes_mask.astype(np.int64),
-            "vote_label": point_votes.astype(np.float32),
+            "vote_label": rows["vote_label"],
             "vote_label_mask": point_votes_mask.astype(np.int64),
             "dataset_idx": np.int64(idx),
             "ref_box_label": ref_box_label.astype(np.int64),
@@ -437,6 +502,17 @@ class ScanReferDataset:
 
         item.update(out_rel)
         return item
+
+
+def _row(out: Optional[Dict[str, np.ndarray]], key: str, shape) -> np.ndarray:
+    """``out[key]``, a float32 array of ``shape``; a new one without it."""
+    if out is None or key not in out:
+        return np.empty(shape, np.float32)
+    row = out[key]
+    if row.dtype != np.float32 or row.shape != tuple(shape):
+        raise ValueError(f"out[{key!r}] must be float32 of shape {tuple(shape)}, not "
+                         f"{row.dtype} {row.shape}")
+    return row
 
 
 def _swap02(mat: np.ndarray) -> np.ndarray:

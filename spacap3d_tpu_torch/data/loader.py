@@ -6,9 +6,14 @@ DataLoader(num_workers=4) (reference scripts/train.py:119): items are built
 by worker threads (numpy releases the GIL in the hot gather and percentile
 ops) and stacked into fixed-shape numpy batches, with the JAX package's
 per-item RNG key schedule, so that the two packages yield equal batches.
-Each item is a ``loader.item`` span on its worker thread and each batch's
-stacking a ``loader.stack`` span (``utils/trace.py``), their request the
-batch's index in the epoch.
+Where the dataset names leaves it can write into given rows
+(``in_place_leaves``: a train item's float32 point block and votes), the
+producer allocates those arrays of each batch and every item writes its
+row of them; the rest is stacked.
+Each item is a ``loader.item`` span on its worker thread (``in_place``:
+its point block went straight into the batch) and each batch's stacking
+a ``loader.stack`` span (``bytes``: what it still copied)
+(``utils/trace.py``), their request the batch's index in the epoch.
 """
 from __future__ import annotations
 
@@ -23,14 +28,17 @@ import numpy as np
 from spacap3d_tpu_torch.utils import trace
 
 
-def stack_batch(items, keys=None) -> Dict[str, np.ndarray]:
+def stack_batch(items, keys=None, placed=None) -> Dict[str, np.ndarray]:
     """Stack a list of item dicts. ``keys`` restricts which leaves are
     stacked — the eval/grid paths pass only what the device step + host
     post-processing consume (e.g. a val item's all-zero (40k, 9)
-    vote_label alone is ~1.4 MB/item of dead copy otherwise)."""
+    vote_label alone is ~1.4 MB/item of dead copy otherwise). ``placed``
+    holds batch arrays whose rows the items already wrote: they are taken
+    as they are."""
     if keys is None:
         keys = items[0].keys()
-    return {k: np.stack([it[k] for it in items]) for k in keys}
+    placed = placed or {}
+    return {k: placed[k] if k in placed else np.stack([it[k] for it in items]) for k in keys}
 
 
 class DataLoader:
@@ -103,16 +111,23 @@ class DataLoader:
         # once — the serial mul_eval protocol and the solver's in-loop
         # val reuse them across epochs/seeds
         getter = getattr(self.dataset, "getitem_cached", None)
+        leaves = {}
         if getter is None or getattr(self.dataset.cfg, "augment", True) \
                 or getattr(self.dataset, "split", "train") == "train":
             getter = self.dataset.__getitem__
+            # a dataset that writes leaves into given rows builds them
+            # straight into the batch's arrays, which are not stacked
+            in_place = getattr(self.dataset, "in_place_leaves", None)
+            leaves = in_place() if in_place is not None else {}
 
-        def build_item(b, idx):
-            with trace.span("loader.item", b, index=int(idx)):
+        def build_item(b, placed, i, idx):
+            rows = {"out": {k: v[i] for k, v in placed.items()}} if placed else {}
+            with trace.span("loader.item", b, index=int(idx),
+                            in_place="point_clouds" in placed):
                 rng = np.random.RandomState(
                     (self.seed * 2654435761 + epoch * 97 + int(idx)) % (2 ** 31)
                 )
-                return getter(int(idx), rng=rng)
+                return getter(int(idx), rng=rng, **rows)
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -122,9 +137,16 @@ class DataLoader:
                 for b, batch_idx in enumerate(batches):
                     if stop.is_set():
                         break
-                    items = list(pool.map(functools.partial(build_item, b), batch_idx))
-                    with trace.span("loader.stack", b):
-                        batch = stack_batch(items)
+                    # a new array each batch: the caller may keep every batch
+                    placed = {k: np.empty((len(batch_idx),) + shape, np.float32)
+                              for k, shape in leaves.items()}
+                    items = list(pool.map(functools.partial(build_item, b, placed),
+                                          range(len(batch_idx)), batch_idx))
+                    with trace.span("loader.stack", b) as s:
+                        batch = stack_batch(items, placed=placed)
+                        if s:
+                            s.set(bytes=sum(v.nbytes for k, v in batch.items()
+                                            if k not in placed))
                     batch["__valid__"] = valid[b]
                     q.put(batch)
             q.put(None)

@@ -16,6 +16,7 @@ version under ``==``.
   ------------------------  -----------------------------------------------
   choice_noreplace_native   ``rng.choice(n, k, replace=False)``
   gather_rows               fancy indexing ``src[idx]``
+  gather_rows_into          ``out[...] = src[idx]`` (a cast to float32)
   percentile_z              the library's formula with one rounding; within
                             an ulp of ``np.percentile`` where neither
                             cancels (numpy rounds twice, and changes
@@ -60,6 +61,9 @@ def library() -> ctypes.CDLL:
         lib.gather_rows_f64.argtypes = [f64p, i64p, f64p, c64, c64]
         lib.gather_rows_f32.argtypes = [f32p, i64p, f32p, c64, c64]
         lib.gather_i64.argtypes = [i64p, i64p, i64p, c64]
+        vp = ctypes.c_void_p
+        for name in ("gather_cols_f32_f32", "gather_cols_f64_f32"):
+            getattr(lib, name).argtypes = [vp, c64, i64p, vp, c64, c64, c64]
         lib.percentile.restype = ctypes.c_double
         lib.percentile.argtypes = [f64p, c64, ctypes.c_double]
         lib.compute_votes.argtypes = [f64p, i64p, i64p, u8p, c64, f64p, f64p]
@@ -121,6 +125,44 @@ def gather_rows(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
 
 def gather_rows_plain(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
     return src[np.asarray(idx, np.int64)]
+
+
+def _row_stride(a: np.ndarray, what: str) -> int:
+    """The row stride of a 2-D array in elements; its rows must be
+    contiguous."""
+    if a.shape[1] > 1 and a.strides[1] != a.itemsize or a.strides[0] % a.itemsize \
+            or a.strides[0] < 0:
+        raise ValueError(f"gather_rows_into: {what} rows must be contiguous, with "
+                         f"strides {a.strides}")
+    return a.strides[0] // a.itemsize
+
+
+def gather_rows_into(src: np.ndarray, idx: np.ndarray, out: np.ndarray) -> np.ndarray:
+    """``out[...] = src[idx]``, cast to float32, in one pass over the
+    chosen rows: ``src`` a 2-D float32 or float64 array (a column range of
+    a wider one too), ``out`` a float32 (len(idx), src.shape[1]) array
+    whose rows may lie apart (the columns of a batch row). Returns ``out``."""
+    idx = np.ascontiguousarray(idx, np.int64)
+    if src.ndim != 2 or src.dtype not in (np.float32, np.float64):
+        raise TypeError(f"gather_rows_into takes a 2-D float32 or float64 source, not "
+                        f"{src.dtype} of rank {src.ndim}")
+    if out.dtype != np.float32 or out.shape != (len(idx), src.shape[1]):
+        raise ValueError(f"gather_rows_into writes a float32 {(len(idx), src.shape[1])} "
+                         f"array, not {out.dtype} {out.shape}")
+    if len(idx) and (idx.min() < 0 or idx.max() >= len(src)):
+        raise IndexError(f"gather_rows_into: an index outside [0, {len(src)})")
+    if not out.size:
+        return out
+    fn = (library().gather_cols_f32_f32 if src.dtype == np.float32
+          else library().gather_cols_f64_f32)
+    fn(src.ctypes.data, _row_stride(src, "source"), idx, out.ctypes.data,
+       _row_stride(out, "destination"), len(idx), src.shape[1])
+    return out
+
+
+def gather_rows_into_plain(src: np.ndarray, idx: np.ndarray, out: np.ndarray) -> np.ndarray:
+    out[...] = src[np.asarray(idx, np.int64)]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,7 @@
 writer, ``ScanReferDataset`` items, ``DataLoader`` and ``GridLoader``
 batches and the ``Vocabulary``, on the same files. Everything here is host
 numpy with the same RNG schedule, so every comparison is bit for bit."""
+import itertools
 import json
 import os
 
@@ -11,6 +12,7 @@ import torch
 
 from spacap3d_tpu.config import DataConfig as JaxDataConfig
 from spacap3d_tpu.data.dataset import ScanReferDataset as JaxDataset
+from spacap3d_tpu.data.dataset import Scene as JaxScene
 from spacap3d_tpu.data.dataset import SceneStore as JaxSceneStore
 from spacap3d_tpu.data.loader import DataLoader as JaxDataLoader
 from spacap3d_tpu.data.scannet_config import ScannetDatasetConfig as JaxDatasetConfig
@@ -18,13 +20,14 @@ from spacap3d_tpu.data.synthetic import write_synthetic_dataset as jax_write_syn
 from spacap3d_tpu.data.vocabulary import Vocabulary as JaxVocabulary
 from spacap3d_tpu.eval.mul_eval import GridLoader as JaxGridLoader
 from spacap3d_tpu_torch.config import DataConfig
-from spacap3d_tpu_torch.data.dataset import ScanReferDataset, SceneStore
+from spacap3d_tpu_torch.data.dataset import ScanReferDataset, Scene, SceneStore
 from spacap3d_tpu_torch.data.loader import DataLoader
 from spacap3d_tpu_torch.data.scannet_config import ScannetDatasetConfig
 from spacap3d_tpu_torch.data.synthetic import write_synthetic_dataset
 from spacap3d_tpu_torch.data.vocabulary import Vocabulary
 from spacap3d_tpu_torch.eval.mul_eval import GridLoader
 from spacap3d_tpu_torch.train.step import gather_point_table, to_device_batch
+from spacap3d_tpu_torch.utils import trace
 
 NUM_POINTS = 1024
 DATA = dict(num_points=NUM_POINTS, use_relation=True, max_des_len=7)
@@ -80,17 +83,119 @@ def test_synthetic_writer_writes_the_jax_files(root, tmp_path):
         assert json.load(f) == json.loads((tmp_path / "ScanRefer_filtered_all.json").read_text())
 
 
-@pytest.mark.parametrize("split,augment", [("val", False), ("train", True)])
-def test_items_equal_jax(root, split, augment):
-    port, ref = datasets(root, split, augment)
+# train items under each feature branch: the height's dtype and the
+# colour's follow the concatenated cloud's (float32 for xyz, normals and
+# multiview of a float32 mesh; float64 with colour or a float64 mesh)
+FEATURES = {
+    "xyz": dict(use_height=False),
+    "colour": dict(use_color=True, use_height=False),
+    "normal": dict(use_normal=True, use_height=False),
+    "multiview": dict(use_multiview=True, use_height=False),
+    "all": dict(use_color=True, use_normal=True, use_multiview=True, use_height=True),
+    "normal-multiview-height": dict(use_normal=True, use_multiview=True, use_height=True),
+}
+BRANCHES = [pytest.param("train", True, f, m, id=f"train-True-{f}-{m}")
+            for f in FEATURES for m in ("float32", "float64")]
+
+
+def scene_arrays(root, mesh_dtype):
+    """Each scene's arrays from the files, its mesh cast to ``mesh_dtype``,
+    with 128 multiview features a point (float32)."""
+    path, _, scene_ids = root
+    rng = np.random.RandomState(9)
+    out = {}
+    for sid in scene_ids:
+        base = os.path.join(path, "scannet", "scannet_data", sid)
+        a = {k: np.load(f"{base}_{k}.npy") for k in ("aligned_vert", "ins_label", "sem_label",
+                                                      "aligned_bbox", "x", "y", "z")}
+        a["aligned_vert"] = a["aligned_vert"].astype(mesh_dtype)
+        a["multiview"] = rng.rand(len(a["ins_label"]), 128).astype(np.float32)
+        out[sid] = a
+    return out
+
+
+def train_datasets(root, features, mesh_dtype):
+    """(port, JAX) train datasets with augmentation and relations over
+    in-memory scenes, under a feature branch of ``FEATURES``."""
+    _, anns, _ = root
+    arrays = scene_arrays(root, mesh_dtype)
+    data = dict(DATA, data_root=root[0], augment=True, **FEATURES[features])
+
+    def store(cls):
+        return {sid: cls(mesh_vertices=a["aligned_vert"], instance_labels=a["ins_label"],
+                         semantic_labels=a["sem_label"], instance_bboxes=a["aligned_bbox"],
+                         relations={ax: a[ax] for ax in ("x", "y", "z")},
+                         multiview=a["multiview"]) for sid, a in arrays.items()}
+
+    port = ScanReferDataset(anns, store(Scene), Vocabulary.build(anns, max_len=7),
+                            ScannetDatasetConfig(), DataConfig(**data), split="train")
+    ref = JaxDataset(anns, store(JaxScene), JaxVocabulary.build(anns, max_len=7),
+                     JaxDatasetConfig(), JaxDataConfig(**data), split="train")
+    return port, ref
+
+
+@pytest.mark.parametrize("split,augment,features,mesh", [
+    pytest.param("val", False, None, None, id="val-False"),
+    pytest.param("train", True, None, None, id="train-True"),
+    *BRANCHES])
+def test_items_equal_jax(root, split, augment, features, mesh):
+    """Items equal the JAX package's bit for bit; an item given batch rows
+    (``out``) writes its point block and votes there, equal to the item
+    built without them, and returns those rows."""
+    if features is None:
+        port, ref = datasets(root, split, augment)
+    else:
+        port, ref = train_datasets(root, features, np.dtype(mesh))
     assert len(port) == len(ref) and port.scene_list == ref.scene_list
     for idx in range(0, len(port), max(1, len(port) // 4)):
         got = port.__getitem__(idx, rng=np.random.RandomState(idx + 3))
         want = ref.__getitem__(idx, rng=np.random.RandomState(idx + 3))
         assert_same_arrays(got, want)
+        batch = {k: np.full((3,) + shape, np.nan, np.float32)
+                 for k, shape in port.in_place_leaves().items()}
+        rows = {k: v[1] for k, v in batch.items()}
+        placed = port.__getitem__(idx, rng=np.random.RandomState(idx + 3), out=rows)
+        assert_same_arrays(placed, want)
+        for k, row in rows.items():
+            assert placed[k] is row
+            assert np.isnan(batch[k][0]).all() and np.isnan(batch[k][2]).all()
+    assert got["point_clouds"].shape == port.in_place_leaves()["point_clouds"]
     if split == "train":
         assert {"x_label", "y_label", "z_label"} <= set(got)
         assert got["vote_label_mask"].any()
+    with pytest.raises(ValueError, match="point_clouds"):
+        port.__getitem__(0, rng=np.random.RandomState(0),
+                         out={"point_clouds": np.zeros((NUM_POINTS, 2), np.float32)})
+
+
+@pytest.mark.parametrize("num_workers", [2, 4])
+def test_train_loader_batches_equal_jax(root, num_workers):
+    """Train batches (augmentation, relations, multiview and normals) equal
+    the JAX loader's; each batch kept owns its point block and votes; every
+    item went into its batch in place, and the stack copied the rest."""
+    port, ref = train_datasets(root, "all", np.dtype("float32"))
+    kw = dict(batch_size=4, shuffle=True, seed=6, num_workers=num_workers)
+    trace.enable()
+    try:
+        got = list(DataLoader(port, **kw))
+    finally:
+        records = trace.disable()
+    want = list(JaxDataLoader(ref, **kw))
+    assert len(got) == len(want) >= 3
+    for g, w in zip(got, want):
+        assert_same_arrays(g, w)
+    for k in port.in_place_leaves():
+        for a, b in itertools.combinations(got, 2):
+            assert not np.shares_memory(a[k], b[k]), k
+    items = [r for r in records if r["name"] == "loader.item"]
+    assert len(items) == 4 * len(got) and all(r["attrs"]["in_place"] for r in items)
+    stacks = sorted((r for r in records if r["name"] == "loader.stack"),
+                    key=lambda r: r["request"])
+    assert [r["request"] for r in stacks] == list(range(len(got)))
+    for r, g in zip(stacks, got):
+        stacked = sum(v.nbytes for k, v in g.items()
+                      if k not in ("point_clouds", "vote_label", "__valid__"))
+        assert r["attrs"]["bytes"] == stacked
 
 
 @pytest.mark.parametrize("with_points", [True, False])

@@ -232,6 +232,45 @@ def test_gather_rows_refuses_other_dtypes():
     assert empty.shape == (0, 3)
 
 
+@pytest.mark.parametrize("src_dtype", ["float32", "float64"])
+def test_gather_rows_into_equals_its_plain_version(src_dtype):
+    """A column range of random rows, cast to float32, into the columns of
+    a wider destination (strided rows), equals the plain version's; the
+    rest of the destination is untouched."""
+    for seed in range(8):
+        r = np.random.RandomState(seed)
+        n, width = r.randint(1, 6000), r.randint(1, 140)
+        src = (r.randn(n, width) * 10.0 ** r.randint(-3, 30)).astype(src_dtype)
+        lo = r.randint(0, width)
+        hi = r.randint(lo + 1, width + 1)
+        idx = r.randint(0, n, r.randint(0, 5000))
+        dst_width = r.randint(hi - lo, hi - lo + 20)
+        col = r.randint(0, dst_width - (hi - lo) + 1)
+        got = np.full((2, len(idx), dst_width), -1.5, np.float32)
+        want = got.copy()
+        native.gather_rows_into(src[:, lo:hi], idx, got[1, :, col:col + hi - lo])
+        native.gather_rows_into_plain(src[:, lo:hi], idx, want[1, :, col:col + hi - lo])
+        assert np.array_equal(got, want, equal_nan=True), seed
+        assert np.array_equal(got[1, :, col:col + hi - lo], src[idx, lo:hi].astype(np.float32))
+
+
+def test_gather_rows_into_refuses_other_dtypes_and_shapes():
+    src, idx = np.zeros((10, 4), np.float32), np.arange(3)
+    for bad in (np.zeros((10, 4), np.int32), np.zeros((10, 4), np.float16), np.zeros(10)):
+        with pytest.raises(TypeError, match="gather_rows_into"):
+            native.gather_rows_into(bad, idx, np.zeros((3, 4), np.float32))
+    for out in (np.zeros((3, 4), np.float64), np.zeros((3, 5), np.float32),
+                np.zeros((4, 4), np.float32)):
+        with pytest.raises(ValueError, match="gather_rows_into"):
+            native.gather_rows_into(src, idx, out)
+    with pytest.raises(ValueError, match="contiguous"):
+        native.gather_rows_into(src, idx, np.zeros((3, 8), np.float32)[:, ::2])
+    with pytest.raises(IndexError, match="outside"):
+        native.gather_rows_into(src, np.array([0, 10]), np.zeros((2, 4), np.float32))
+    empty = native.gather_rows_into(src, np.zeros(0, np.int64), np.zeros((0, 4), np.float32))
+    assert empty.shape == (0, 4)
+
+
 COUNTING_CXX = textwrap.dedent("""\
     #!{python}
     import os, subprocess, sys, time

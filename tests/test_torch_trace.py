@@ -96,9 +96,12 @@ def test_spans_nest_by_thread_with_their_requests():
     for b, batch in enumerate(batches):
         got = sorted(r["attrs"]["index"] for r in items if r["request"] == b)
         assert got == sorted(batch["index"].tolist())
+    # a dataset without in-place leaves: every item is stacked whole
+    assert not any(r["attrs"]["in_place"] for r in items)
     stacks = by["loader.stack"]
     assert sorted(r["request"] for r in stacks) == [0, 1, 2]
     assert all(r["thread"] != main and r["parent"] == 0 for r in stacks)
+    assert {r["attrs"]["bytes"] for r in stacks} == {2 * 8 + 2 * 4 * 8}
     for r in records:
         assert 0 <= r["cpu_ns"] <= r["end_ns"] - r["start_ns"], r
 
